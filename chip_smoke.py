@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port of the Sherman index on one CUDA card.
+"""Drive the PyTorch port on one CUDA card: the Sherman index and the LM
+serving paths.
 
     python3 chip_smoke.py                      # the full check, one GPU
     python3 chip_smoke.py --records 134217728  # a smaller deployment phase
@@ -7,22 +8,37 @@
 Phases, in order; any failure raises and exits non-zero:
 
 1. device  — require CUDA; print the card's name and power limit;
-2. build   — compile the leaf-search kernel from ``src/repro_torch/csrc``;
-3. kernel  — hold the CUDA kernel against its plain version on the card,
-   bit for bit, at the reference kernel test's shapes and the main path's,
-   and time both on the device (a replayed CUDA graph) and per eager call;
+2. build   — compile the three kernels from ``src/repro_torch/csrc``, one
+   ``nvcc`` per source, all started together;
+3. kernel  — hold each CUDA kernel against its plain version on the card
+   (leaf search bit for bit; flash attention and WKV6 within the reference
+   kernel test's tolerances) at the reference kernel test's shapes, a
+   ragged shape and the main paths' shapes, and time kernel, plain version
+   and (for attention) PyTorch's SDPA on the device and per eager call;
 4. parity  — ``run_systems`` for ``sherman`` and ``fg+`` on the quick
    YCSB-A spec on the card and on the CPU: the RunResults must be equal;
 5. deploy  — the paper-scale index (1B records, 80% full leaves, height 8)
    under the write-intensive mix: bulkload, run, netsim metrics, kernel
-   launches, peak memory, and every acknowledged write read back.
+   launches, peak memory, and every acknowledged write read back;
+6. lm-parity — reduced smollm-135m, granite-3-8b and rwkv6-1.6b in f32:
+   the same weights on the card (kernels) and on the CPU (plain
+   versions) give the same prefill, decode and forward logits;
+7. granite — granite-3-8b at full width in bf16: prefill of 4 × 4096
+   tokens, 64 decode steps, and prefill + decode == forward at 512 tokens;
+8. rwkv    — rwkv6-1.6b at full width: forward and loss over 4 × 4096
+   tokens in bf16; step-by-step decode == forward on the bf16 model's
+   first two layers at 64 tokens, and on the whole model in f32 at 256
+   tokens (see ``RWKV_TOL``).
 
-The line before the last is a JSON object with the kernel's numbers; the
+The line before the last is a JSON object with the kernels' numbers; the
 last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
 import argparse
+import copy
+import dataclasses
+import gc
 import json
 import math
 import os
@@ -34,14 +50,57 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-#: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and the float32 rate
-#: outside the tensor cores, which bounds the kernel's scalar compares.
+#: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, the float32 rate
+#: outside the tensor cores (the leaf search's compares, the WKV6
+#: recurrence) and the dense bf16 tensor-core rate (attention).
 HBM_BYTES_S = 3.35e12
 SCALAR_OPS_S = 67e12
+BF16_TENSOR_OPS_S = 989e12
 
 KERNEL_SHAPES = [(256, 8), (512, 16), (128, 32), (256, 64),   # kernel test
                  (512, 16), (1024, 16), (1000, 16)]           # main path
 MAIN_PATH_SHAPE = (512, 16)     # lookup bucket at batch 1024, 50% reads
+
+# flash attention (B, H, KV, S, hd, causal, dtype, atol, rtol): the
+# reference kernel test's shapes at its tolerances (2e-5 in f32, 3e-2 in
+# bf16), two ragged ones, and the dense prefill's (smollm-135m, then
+# granite-3-8b, at 4 x 4096 tokens), the last being the main path's.  At
+# S = 4096 a row's output has std ~(e/(row+1))^0.5, ~0.03 over most rows,
+# so 3e-2 would pass a kernel that dropped key tiles there: the prefill
+# shapes are held in f32 at 2e-5, and in bf16 at 4e-3 absolute plus 1e-2
+# relative (one bf16 step is 2^-8 to 2^-7 of a value, so a result that
+# rounds to the neighbouring bf16 value passes, and little more).
+FLASH_SHAPES = [(2, 4, 2, 256, 64, True, "float32", 2e-5, 2e-5),
+                (1, 8, 8, 128, 128, False, "float32", 2e-5, 2e-5),
+                (2, 2, 1, 512, 32, True, "float32", 2e-5, 2e-5),
+                (1, 4, 4, 256, 64, True, "bfloat16", 3e-2, 3e-2),
+                (3, 6, 2, 128, 64, False, "float32", 2e-5, 2e-5),
+                (2, 4, 2, 77, 64, True, "float32", 2e-5, 2e-5),
+                (1, 6, 3, 130, 16, False, "bfloat16", 3e-2, 3e-2),
+                (4, 9, 3, 4096, 64, True, "float32", 2e-5, 2e-5),
+                (4, 32, 8, 4096, 128, True, "float32", 2e-5, 2e-5),
+                (4, 9, 3, 4096, 64, True, "bfloat16", 4e-3, 1e-2),
+                (4, 32, 8, 4096, 128, True, "bfloat16", 4e-3, 1e-2)]
+# WKV6 (B, H, T, N, dtype): the reference kernel test's shapes, two ragged
+# ones, and rwkv6-1.6b's forward over 4 x 4096 tokens (f32 r/k/v/w, the
+# main path's).
+WKV_SHAPES = [(2, 3, 256, 32, "float32"), (1, 2, 128, 64, "float32"),
+              (2, 1, 512, 16, "float32"), (1, 2, 128, 64, "bfloat16"),
+              (2, 3, 77, 32, "float32"), (1, 2, 33, 64, "bfloat16"),
+              (4, 32, 4096, 64, "float32")]
+WKV_TOL = {"float32": 1e-4, "bfloat16": 0.15}
+# Full-width checks of one serving path against another, absolute only.
+# granite in bf16: at |logit| 4-8 one bf16 step is 0.03125; the two sides
+# round at other points (matmuls at M=1 against M=S, decode's
+# probabilities rounded to bf16 against the kernel's f32 ones); earlier
+# runs read 0.015625 (prefill) and 0.046875 (decode), so three steps.
+# rwkv6 in bf16: its random init amplifies the two paths' rounding with
+# depth (0.03125 after 1 and 2 layers, ~4 after 24, the logits' own
+# size), so bf16 is held on the first two layers at two steps; the whole
+# model is held in f32, where the paths' summation orders left 0.0138.
+GRANITE_TOL = 0.094
+RWKV_BF16_TOL = 0.0625
+RWKV_TOL = 0.05
 
 
 def log(msg: str) -> None:
@@ -118,7 +177,24 @@ def device_ms(torch, fn, reps: int = 100, samples: int = 25) -> float:
     return _event_ms(torch, graph.replay, reps, samples)
 
 
+def _peak(torch) -> str:
+    return f"max_memory_allocated {torch.cuda.max_memory_allocated()}"
+
+
+def _check_close(torch, got, want, atol: float, rtol: float,
+                 what: str) -> float:
+    """Raise unless ``|got - want| <= atol + rtol * |want|`` everywhere (as
+    numpy's assert_allclose); return the max abs error."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    if not bool((err <= atol + rtol * want.abs()).all()):
+        raise AssertionError(f"{what}: max abs error {float(err.max())} "
+                             f"beyond atol {atol} rtol {rtol}")
+    return float(err.max())
+
+
 def phase_kernel(torch, leaf_search, leaf_search_ref):
+    torch.cuda.reset_peak_memory_stats()
     rng = np.random.default_rng(7)
     dev = torch.device("cuda")
     max_err = 0
@@ -160,7 +236,8 @@ def phase_kernel(torch, leaf_search, leaf_search_ref):
     log(f"kernel  B={b} F={f} uint8: device {ms:.6f} ms, plain device "
         f"{plain_ms:.6f} ms (CUDA graph of 100 calls); per eager call "
         f"{call_ms:.6f} ms, plain {plain_call_ms:.6f} ms; bound "
-        f"{bound_ms:.9f} ms ({n_bytes} bytes, {matched} matched lanes)")
+        f"{bound_ms:.9f} ms ({n_bytes} bytes, {matched} matched lanes); "
+        f"{_peak(torch)}")
     return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms,
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
@@ -170,6 +247,7 @@ def phase_kernel(torch, leaf_search, leaf_search_ref):
 def phase_parity(torch, leaf_search, engine, get_preset):
     spec = get_preset("ycsb-a", load_records=8_000, ops=4_096, batch=1_024,
                       theta=0.99)
+    torch.cuda.reset_peak_memory_stats()
     leaf_search.launches = 0
     t0 = time.perf_counter()
     gpu = engine.run_systems(spec, ("sherman", "fg+"), device="cuda")
@@ -188,7 +266,7 @@ def phase_parity(torch, leaf_search, engine, get_preset):
     if launches <= 0:
         raise AssertionError("the GPU run never launched leaf_search")
     log(f"parity  GPU run {t1 - t0:.3f} s, CPU run {t2 - t1:.3f} s, "
-        f"leaf_search launches {launches}")
+        f"leaf_search launches {launches}; {_peak(torch)}")
 
 
 def phase_deploy(torch, leaf_search, records: int, nodes_per_ms: int):
@@ -281,6 +359,301 @@ def phase_deploy(torch, leaf_search, records: int, nodes_per_ms: int):
     return launches
 
 
+def phase_flash(torch, flash_attention, attention_ref):
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    max_err = 0.0
+    torch.cuda.reset_peak_memory_stats()
+    for b, h, kv, s, hd, causal, dt, atol, rtol in FLASH_SHAPES:
+        dtype = getattr(torch, dt)
+        q, k, v = (torch.randn((b, n, s, hd), generator=gen, device="cuda")
+                   .to(dtype) for n in (h, kv, kv))
+        got = flash_attention(q, k, v, causal=causal)
+        want = attention_ref(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        err = _check_close(torch, got, want, atol, rtol,
+                           f"flash_attention B={b} H={h} KV={kv} S={s} "
+                           f"hd={hd} {dt}")
+        max_err = max(max_err, err)
+        log(f"kernel  flash_attention B={b} H={h} KV={kv} S={s} hd={hd} "
+            f"causal={causal} {dt}: max abs error {err} (atol {atol} rtol "
+            f"{rtol}; max |out| {float(want.float().abs().max())})")
+        del got, want
+        torch.cuda.empty_cache()
+    # the main path's shape (granite-3-8b prefill) is the last one
+    kernel = lambda: flash_attention(q, k, v, causal=True)
+    plain = lambda: attention_ref(q, k, v, causal=True)
+    library = lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True)
+    ms = device_ms(torch, kernel, reps=5, samples=5)
+    call_ms = host_ms(torch, kernel, reps=5, samples=5)
+    plain_ms = host_ms(torch, plain, reps=2, samples=3)
+    lib_ms = device_ms(torch, library, reps=20, samples=5)
+    # the work: 4·hd flops per unmasked (query, key) pair and head, against
+    # q, k, v and o moved once
+    pairs = s * (s + 1) // 2
+    n_ops = 4 * b * h * pairs * hd
+    n_bytes = 2 * (2 * b * s * h * hd + 2 * b * s * kv * hd)
+    ops_ms = n_ops / BF16_TENSOR_OPS_S * 1e3
+    bytes_ms = n_bytes / HBM_BYTES_S * 1e3
+    log(f"kernel  flash_attention B={b} H={h} KV={kv} S={s} hd={hd} bf16 "
+        f"causal: device {ms:.6f} ms (CUDA graph of 5 calls); per eager "
+        f"call {call_ms:.6f} ms; plain {plain_ms:.6f} ms per eager call; "
+        f"SDPA {lib_ms:.6f} ms (CUDA graph of 20 calls); bound "
+        f"{max(ops_ms, bytes_ms):.6f} ms ({n_ops} flops at bf16 tensor "
+        f"peak {ops_ms:.6f} ms, {n_bytes} bytes {bytes_ms:.6f} ms); "
+        f"{_peak(torch)}")
+    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=max(ops_ms, bytes_ms),
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                host_ms=call_ms, library_ms=lib_ms)
+
+
+def phase_wkv(torch, wkv6, wkv6_ref):
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    max_err = 0.0
+    torch.cuda.reset_peak_memory_stats()
+    for b, h, t, n, dt in WKV_SHAPES:
+        dtype = getattr(torch, dt)
+        r, k, v = (torch.randn((b, h, t, n), generator=gen, device="cuda")
+                   .to(dtype) for _ in range(3))
+        w = (torch.rand((b, h, t, n), generator=gen, device="cuda") * 0.5
+             + 0.45).to(dtype)
+        u = torch.randn((h, n), generator=gen, device="cuda").to(dtype)
+        got = wkv6(r, k, v, w, u)
+        want = wkv6_ref(r, k, v, w, u)
+        torch.cuda.synchronize()
+        err = _check_close(torch, got, want, WKV_TOL[dt], WKV_TOL[dt],
+                           f"wkv6 B={b} H={h} T={t} N={n} {dt}")
+        max_err = max(max_err, err)
+        log(f"kernel  wkv6 B={b} H={h} T={t} N={n} {dt}: max abs error "
+            f"{err} (tol {WKV_TOL[dt]})")
+    kernel = lambda: wkv6(r, k, v, w, u)
+    ms = device_ms(torch, kernel, reps=20, samples=5)
+    call_ms = host_ms(torch, kernel, reps=20, samples=5)
+    plain_ms = host_ms(torch, lambda: wkv6_ref(r, k, v, w, u), reps=1,
+                       samples=3)
+    # the work: r, k, v, w in and the f32 o out once each, and u; about
+    # 4·N² flops per token and head (the output pass and the state update
+    # over the [N, N] state, a multiply-add each)
+    n_bytes = 4 * b * h * t * n * r.element_size() + 4 * b * h * t * n \
+        + h * n * u.element_size()
+    n_ops = 4 * n * n * b * h * t
+    bytes_ms = n_bytes / HBM_BYTES_S * 1e3
+    ops_ms = n_ops / SCALAR_OPS_S * 1e3
+    log(f"kernel  wkv6 B={b} H={h} T={t} N={n} f32: device {ms:.6f} ms "
+        f"(CUDA graph of 20 calls); per eager call {call_ms:.6f} ms; plain "
+        f"{plain_ms:.6f} ms per eager call; bound "
+        f"{max(ops_ms, bytes_ms):.6f} ms ({n_bytes} bytes {bytes_ms:.6f} "
+        f"ms, {n_ops} flops at f32 peak {ops_ms:.6f} ms); {_peak(torch)}")
+    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=max(ops_ms, bytes_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                host_ms=call_ms, library_ms=None)
+
+
+def phase_lm_parity(torch, get_reduced, registry, kernels):
+    """Reduced f32 models: the card (kernels) against the CPU (plain
+    versions) on the same weights, within 1e-4."""
+    torch.cuda.reset_peak_memory_stats()
+    for name in ("smollm-135m", "granite-3-8b", "rwkv6-1.6b"):
+        cfg = get_reduced(name)
+        cpu = registry.build(cfg, device="cpu")
+        gpu = registry.build(cfg, device="cuda")
+        model = cpu.init(torch.Generator().manual_seed(0))
+        model_gpu = copy.deepcopy(model).to("cuda")
+        batch = registry.make_batch(cfg, 2, 40,
+                                    torch.Generator().manual_seed(1), "cpu")
+        batch_gpu = {"tokens": batch["tokens"].cuda()}
+        for kern in kernels:
+            kern.launches = 0
+        pairs = [("forward", gpu.forward(model_gpu, batch_gpu),
+                  cpu.forward(model, batch))]
+        steps = batch["tokens"][:, 32:36]
+        if cfg.family == "dense":
+            prompt = {"tokens": batch["tokens"][:, :32]}
+            prompt_gpu = {"tokens": batch_gpu["tokens"][:, :32]}
+            lg, st_g = gpu.prefill(model_gpu, prompt_gpu, 48)
+            lc, st_c = cpu.prefill(model, prompt, 48)
+        else:
+            st_g = gpu.decode_init(model_gpu, batch_gpu, 0)
+            st_c = cpu.decode_init(model, batch, 0)
+            for i in range(32):
+                lg, st_g = gpu.decode_step(model_gpu, st_g,
+                                           batch_gpu["tokens"][:, i])
+                lc, st_c = cpu.decode_step(model, st_c, batch["tokens"][:, i])
+        pairs.append(("prefill" if cfg.family == "dense" else
+                      "decode to 32", lg, lc))
+        for i in range(steps.shape[1]):
+            lg, st_g = gpu.decode_step(model_gpu, st_g, steps[:, i].cuda())
+            lc, st_c = cpu.decode_step(model, st_c, steps[:, i])
+            pairs.append((f"decode {i}", lg, lc))
+        torch.cuda.synchronize()
+        launches = {k.__name__: k.launches for k in kernels}
+        errs = {what: _check_close(torch, g.cpu(), c, 1e-4, 1e-4,
+                                   f"lm-parity {name} {what}")
+                for what, g, c in pairs}
+        if not any(launches.values()):
+            raise AssertionError(f"lm-parity {name}: no kernel launched")
+        log(f"lm-parity {name} (reduced, f32): GPU == CPU within 1e-4; max "
+            f"abs errors {errs}; kernel launches {launches}")
+    log(f"lm-parity {_peak(torch)}")
+
+
+def phase_granite(torch, get, registry, flash_attention):
+    cfg = get("granite-3-8b")
+    api = registry.build(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    model = api.init(gen)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"granite {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab}, bf16; {n_params} parameters initialised on the card "
+        f"in {time.perf_counter() - t0:.3f} s")
+    b, s, s_max, steps = 4, 4096, 4160, 64
+    batch = registry.make_batch(cfg, b, s, gen)
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    logits, st = api.prefill(model, batch, s_max)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    launches = flash_attention.launches
+    if launches != cfg.n_layers or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"granite prefill: launches {launches}, "
+                             "finite logits "
+                             f"{bool(torch.isfinite(logits).all())}")
+    tok = logits.argmax(-1)
+    finite = torch.ones((), dtype=torch.bool, device="cuda")
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        logits, st = api.decode_step(model, st, tok)
+        finite &= torch.isfinite(logits).all()
+        tok = logits.argmax(-1)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    if not bool(finite) or st.pos != s + steps:
+        raise AssertionError(f"granite decode: finite {bool(finite)}, pos "
+                             f"{st.pos}")
+    # where a decode step's time goes: the device's busy time against the
+    # host's wall clock, over 4 profiled steps
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        for _ in range(4):
+            logits, st = api.decode_step(model, st, tok)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t1) * 1e3 / 4
+    # device busy: the kernels' own time; the top ops: device time
+    # attributed to the PyTorch ops that launched it
+    events = prof.key_averages()
+    busy_ms = sum(e.self_device_time_total for e in events
+                  if e.device_type != DeviceType.CPU) / 1e3 / 4
+    top = sorted((e for e in events if e.device_type == DeviceType.CPU),
+                 key=lambda e: -e.self_device_time_total)[:3]
+    log(f"granite decode step (profiled): wall {wall_ms:.3f} ms, device "
+        f"busy {busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.3f}; "
+        "top device time by op: " + "; ".join(
+            f"{e.key[:40]} {e.self_device_time_total / 4e3:.3f} ms"
+            for e in top))
+    log(f"granite prefill {b} x {s} tokens in {prefill_s:.3f} s = "
+        f"{b * s / prefill_s:.1f} tokens/s; flash_attention launches "
+        f"{launches}; decode {steps} steps at batch {b} (s_max {s_max}) in "
+        f"{decode_s:.3f} s = {b * steps / decode_s:.1f} tokens/s; logits "
+        f"finite; {_peak(torch)}")
+    # prefill + one decode step == forward at the last two positions
+    toks = batch["tokens"][:1, :512]
+    full = api.forward(model, {"tokens": toks})
+    lp, st = api.prefill(model, {"tokens": toks[:, :511]}, 512)
+    ld, _ = api.decode_step(model, st, toks[:, 511])
+    ep = _check_close(torch, lp, full[:, 510], GRANITE_TOL, 0.0,
+                      "granite prefill vs forward")
+    ed = _check_close(torch, ld, full[:, 511], GRANITE_TOL, 0.0,
+                      "granite decode vs forward")
+    log(f"granite 512-token prompt: prefill vs forward max abs error {ep}, "
+        f"decode_step vs forward {ed} (atol {GRANITE_TOL}; max |logit| "
+        f"{float(full[:, 510:].float().abs().max())})")
+    return launches
+
+
+def _check_decode(torch, api, model, toks, atol: float, what: str):
+    """Feed ``toks`` [1, T] through ``decode_step`` one at a time against
+    one ``forward``; raise unless the logits agree within ``atol``."""
+    full = api.forward(model, {"tokens": toks})
+    st = api.decode_init(model, {"tokens": toks}, 0)
+    outs = []
+    for i in range(toks.shape[1]):
+        lg, st = api.decode_step(model, st, toks[:, i])
+        outs.append(lg)
+    err = _check_close(torch, torch.stack(outs, 1), full, atol, 0.0, what)
+    return err, float(full.float().abs().max())
+
+
+def phase_rwkv(torch, get, registry, wkv6):
+    from repro_torch.models import rwkv6
+    cfg = get("rwkv6-1.6b")
+    api = registry.build(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    model = api.init(gen)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"rwkv    {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.d_model // cfg.rwkv_head_dim} heads of {cfg.rwkv_head_dim}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab}, bf16; {n_params} parameters "
+        f"initialised on the card in {time.perf_counter() - t0:.3f} s")
+    b, s = 4, 4096
+    batch = registry.make_batch(cfg, b, s, gen)
+    wkv6.launches = 0
+    t0 = time.perf_counter()
+    logits = api.forward(model, batch)
+    torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t0
+    launches = wkv6.launches
+    t0 = time.perf_counter()
+    loss = float(api.loss(model, batch))
+    loss_s = time.perf_counter() - t0
+    if launches != cfg.n_layers or not bool(torch.isfinite(logits).all()) \
+            or not math.isfinite(loss):
+        raise AssertionError(f"rwkv forward: launches {launches}, loss "
+                             f"{loss}")
+    log(f"rwkv    forward {b} x {s} tokens in {fwd_s:.3f} s = "
+        f"{b * s / fwd_s:.1f} tokens/s; wkv6 launches {launches}; loss "
+        f"{loss} in {loss_s:.3f} s; logits finite; {_peak(torch)}")
+    del logits
+    # step-by-step decode == forward in bf16 on the first two layers
+    # (see RWKV_TOL)
+    toks = batch["tokens"][:1, :256]
+    depth = 2
+    head = rwkv6.RWKV6LM(list(model.layers[:depth]), **{
+        n: getattr(model, n) for n in rwkv6.MODEL_FIELDS})
+    sub = registry.build(dataclasses.replace(cfg, n_layers=depth))
+    err, top = _check_decode(torch, sub, head, toks[:, :64], RWKV_BF16_TOL,
+                             "rwkv bf16 decode vs forward")
+    log(f"rwkv    64-token prompt, bf16 weights, first {depth} layers: "
+        f"decode_step vs forward max abs error {err} (atol "
+        f"{RWKV_BF16_TOL}; max |logit| {top})")
+    del model, head
+    gc.collect()
+    torch.cuda.empty_cache()
+    # step-by-step decode == forward, at full width in f32
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    api = registry.build(cfg32)
+    torch.cuda.reset_peak_memory_stats()
+    model = api.init(torch.Generator(device="cuda").manual_seed(0))
+    err, top = _check_decode(torch, api, model, toks, RWKV_TOL,
+                             "rwkv f32 decode vs forward")
+    log(f"rwkv    256-token prompt, f32 weights: decode_step vs forward "
+        f"max abs error {err} (atol {RWKV_TOL}; max |logit| {top}); "
+        f"{_peak(torch)}")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--records", type=int, default=1_000_000_000,
@@ -292,10 +665,20 @@ def main(argv=None) -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.configs import get, get_reduced
     from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.leaf_search.kernel import leaf_search
     from repro_torch.kernels.leaf_search.ref import leaf_search_ref
+    from repro_torch.kernels.rwkv_scan.kernel import wkv6
+    from repro_torch.kernels.rwkv_scan.ref import wkv6_ref
+    from repro_torch.models import registry
     from repro_torch.workloads import engine, get_preset
+
+    # every float32 matmul in full float32 (the GPU-vs-CPU comparisons)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     # 1. device
     line = gpu_line()
@@ -303,16 +686,24 @@ def main(argv=None) -> int:
         f"{torch.__version__} cuda {torch.version.cuda}")
     log(line)
 
-    # 2. build
+    # 2. build, one nvcc per source, all started together
+    names = ("leaf_search", "flash_attention", "wkv6")
     t0 = time.perf_counter()
-    build.load("leaf_search")
-    log(f"build   leaf_search.cu in {time.perf_counter() - t0:.3f} s")
-    for ln in build.BUILD_LOGS.get("leaf_search", "").splitlines():
-        if "registers" in ln or "spill" in ln:
-            log(f"build   {ln.strip()}")
+    build.build_all(names)
+    log(f"build   {', '.join(n + '.cu' for n in names)} in "
+        f"{time.perf_counter() - t0:.3f} s")
+    for name in names:
+        for ln in build.BUILD_LOGS.get(name, "").splitlines():
+            if "registers" in ln or "spill" in ln:
+                log(f"build   {name}: {ln.strip()}")
 
-    # 3. kernel against its plain version
-    numbers = phase_kernel(torch, leaf_search, leaf_search_ref)
+    # 3. each kernel against its plain version
+    numbers = {"leaf_search": phase_kernel(torch, leaf_search,
+                                           leaf_search_ref),
+               "flash_attention": phase_flash(torch, flash_attention,
+                                              attention_ref),
+               "wkv6": phase_wkv(torch, wkv6, wkv6_ref)}
+    torch.cuda.empty_cache()
 
     # 4. the GPU run agrees with the CPU run
     phase_parity(torch, leaf_search, engine, get_preset)
@@ -320,13 +711,29 @@ def main(argv=None) -> int:
     # 5. the deployment phase
     # the pool scales with the records: 25,165,824 rows per MS at 1B
     npm = 25_165_824 * args.records // 1_000_000_000
-    launches = phase_deploy(torch, leaf_search, args.records, npm)
+    launches = {"leaf_search": phase_deploy(torch, leaf_search, args.records,
+                                            npm)}
+    gc.collect()                # the index's pool, held by a cycle
+    torch.cuda.empty_cache()
+    log(f"deploy  freed: memory_allocated {torch.cuda.memory_allocated()}")
 
-    kernels = [dict(
-        name="leaf_search", route="cuda",
-        source="src/repro_torch/csrc/leaf_search.cu",
-        replaces="src/repro/kernels/leaf_search/kernel.py:48",
-        launches=launches, library_ms=None, **numbers)]
+    # 6.-8. the LM serving paths
+    phase_lm_parity(torch, get_reduced, registry, (flash_attention, wkv6))
+    launches["flash_attention"] = phase_granite(torch, get, registry,
+                                                flash_attention)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches["wkv6"] = phase_rwkv(torch, get, registry, wkv6)
+
+    replaces = {
+        "leaf_search": "src/repro/kernels/leaf_search/kernel.py:48",
+        "flash_attention": "src/repro/kernels/flash_attention/kernel.py:74",
+        "wkv6": "src/repro/kernels/rwkv_scan/kernel.py:46"}
+    kernels = [dict({"library_ms": None}, name=name, route="cuda",
+                    source=f"src/repro_torch/csrc/{name}.cu",
+                    replaces=replaces[name], launches=launches[name],
+                    **numbers[name])
+               for name in names]
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,11 @@
+"""SmolLM-135M  [hf:HuggingFaceTB/SmolLM-135M] — small llama-arch.
+
+30L, d_model 576, 9 heads (GQA kv=3), d_ff 1536, vocab 49152, tied.
+"""
+from repro_torch.models.common import ArchConfig
+
+CONFIG = ArchConfig(
+    name="smollm-135m", family="dense",
+    n_layers=30, d_model=576, n_heads=9, n_kv_heads=3,
+    d_ff=1536, vocab=49152, tie_embeddings=True,
+)

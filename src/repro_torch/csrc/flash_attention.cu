@@ -1,0 +1,228 @@
+// Causal or full grouped-query attention with an online softmax, for
+// Hopper (sm_90a).  Replaces the Pallas TPU kernel
+// repro/kernels/flash_attention/kernel.py::flash_attention.
+//
+// For each (b, h, query row i), with g = h / (H / KV) the shared KV head:
+//   s_j = (q_i . k_j) * hd^-0.5,   masked to NEG_INF where causal && j > i
+//   o_i = sum_j softmax(s)_j v_j
+// with the running max m, the running sum l and the accumulator acc in f32
+// (P is never rounded to the input type), and o written in q's dtype.
+//
+// Design (simple and right first):
+//   * one block of 256 threads per (64-row query tile, h, b);
+//   * each query row belongs to 4 neighbouring threads; thread t of the
+//     four owns the float4 chunks t, t+4, t+8, ... of the head dim, so it
+//     keeps hd/4 query values and hd/4 accumulators in registers, and the
+//     four partial dot products are summed with two __shfl_xor_sync;
+//   * K and V tiles of 32 rows are staged in shared memory as f32, read
+//     back as float4 (one 16-byte load feeds four FMAs);
+//   * with causal masking the loop stops after the tile that holds the
+//     block's last query row, so tiles above the diagonal are skipped;
+//   * the ragged edges (Sq and Sk not multiples of the tiles) are masked:
+//     keys past Sk get probability 0, rows past Sq are not stored.
+// Every tensor is addressed through (batch, seq, head) strides in elements
+// with the head dim contiguous, so the model's [B,S,H,hd] layout and the
+// kernel layout [B,H,S,hd] both run without a copy.
+//
+// Bound: at the dense prefill's shapes the function needs 4*B*H*pairs*hd
+// flops (pairs = the unmasked (i, j) pairs), which at the H100's bf16
+// tensor-core rate take longer than moving q, k, v and o once; this kernel
+// runs on the f32 FMA units instead (no wgmma, no TMA) and is far from
+// that bound.  Tensor cores are a later design.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr float kNegInf = -1e30f;   // the reference's NEG_INF, not -inf
+constexpr int kBQ = 64;             // query rows per block
+constexpr int kBK = 32;             // key rows per shared-memory tile
+constexpr int kTPR = 4;             // threads per query row
+constexpr int kThreads = kBQ * kTPR;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+
+struct Strides {
+  int64_t b, s, h;
+};
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, T* __restrict__ o, int sq, int sk,
+                 int group, Strides qs, Strides ks, Strides vs, Strides os,
+                 float scale, int causal) {
+  constexpr int kChunks = HD / 4;            // float4 chunks per row
+  constexpr int kMine = kChunks / kTPR;      // chunks per thread
+  __shared__ float4 k_tile[kBK][kChunks];
+  __shared__ float4 v_tile[kBK][kChunks];
+
+  const int tid = threadIdx.x;
+  const int row = tid / kTPR;
+  const int t = tid % kTPR;
+  const int q0 = blockIdx.x * kBQ;
+  const int qi = q0 + row;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int g = h / group;
+
+  float4 qr[kMine], acc[kMine];
+  const T* qrow = q + b * qs.b + (int64_t)qi * qs.s + h * qs.h;
+#pragma unroll
+  for (int c = 0; c < kMine; ++c) {
+    const int d = 4 * (t + kTPR * c);
+    if (qi < sq) {
+      qr[c] = make_float4(to_f32(qrow[d]), to_f32(qrow[d + 1]),
+                          to_f32(qrow[d + 2]), to_f32(qrow[d + 3]));
+    } else {
+      qr[c] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    acc[c] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  float m = kNegInf, l = 0.f;
+
+  const T* kbase = k + b * ks.b + g * ks.h;
+  const T* vbase = v + b * vs.b + g * vs.h;
+  const int kend = causal ? min(sk, q0 + kBQ) : sk;
+  for (int k0 = 0; k0 < kend; k0 += kBK) {
+    __syncthreads();                          // the last tile is consumed
+    for (int e = tid; e < kBK * kChunks; e += kThreads) {
+      const int j = e / kChunks, d = 4 * (e % kChunks), kj = k0 + j;
+      float4 kk = make_float4(0.f, 0.f, 0.f, 0.f), vv = kk;
+      if (kj < sk) {
+        const T* kp = kbase + (int64_t)kj * ks.s + d;
+        const T* vp = vbase + (int64_t)kj * vs.s + d;
+        kk = make_float4(to_f32(kp[0]), to_f32(kp[1]), to_f32(kp[2]),
+                         to_f32(kp[3]));
+        vv = make_float4(to_f32(vp[0]), to_f32(vp[1]), to_f32(vp[2]),
+                         to_f32(vp[3]));
+      }
+      k_tile[j][d / 4] = kk;
+      v_tile[j][d / 4] = vv;
+    }
+    __syncthreads();
+
+    float s[kBK];
+    float m_new = m;
+#pragma unroll
+    for (int j = 0; j < kBK; ++j) {
+      float dot = 0.f;
+#pragma unroll
+      for (int c = 0; c < kMine; ++c) {
+        const float4 kk = k_tile[j][t + kTPR * c];
+        dot = fmaf(qr[c].x, kk.x, dot);
+        dot = fmaf(qr[c].y, kk.y, dot);
+        dot = fmaf(qr[c].z, kk.z, dot);
+        dot = fmaf(qr[c].w, kk.w, dot);
+      }
+      dot += __shfl_xor_sync(0xffffffffu, dot, 1);
+      dot += __shfl_xor_sync(0xffffffffu, dot, 2);
+      const int kj = k0 + j;
+      s[j] = (causal && kj > qi) ? kNegInf : dot * scale;
+      if (kj < sk) m_new = fmaxf(m_new, s[j]);
+    }
+    const float alpha = expf(m - m_new);
+    l *= alpha;
+#pragma unroll
+    for (int c = 0; c < kMine; ++c) {
+      acc[c].x *= alpha;
+      acc[c].y *= alpha;
+      acc[c].z *= alpha;
+      acc[c].w *= alpha;
+    }
+#pragma unroll
+    for (int j = 0; j < kBK; ++j) {
+      const float p = (k0 + j < sk) ? expf(s[j] - m_new) : 0.f;
+      l += p;
+#pragma unroll
+      for (int c = 0; c < kMine; ++c) {
+        const float4 vv = v_tile[j][t + kTPR * c];
+        acc[c].x = fmaf(p, vv.x, acc[c].x);
+        acc[c].y = fmaf(p, vv.y, acc[c].y);
+        acc[c].z = fmaf(p, vv.z, acc[c].z);
+        acc[c].w = fmaf(p, vv.w, acc[c].w);
+      }
+    }
+    m = m_new;
+  }
+
+  if (qi >= sq) return;
+  const float inv = 1.f / fmaxf(l, 1e-30f);
+  T* orow = o + b * os.b + (int64_t)qi * os.s + h * os.h;
+#pragma unroll
+  for (int c = 0; c < kMine; ++c) {
+    const int d = 4 * (t + kTPR * c);
+    store(orow + d, acc[c].x * inv);
+    store(orow + d + 1, acc[c].y * inv);
+    store(orow + d + 2, acc[c].z * inv);
+    store(orow + d + 3, acc[c].w * inv);
+  }
+}
+
+template <typename T, int HD>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   int b, int h, int sq, int sk, int group, Strides qs,
+                   Strides ks, Strides vs, Strides os, float scale,
+                   int causal, cudaStream_t stream) {
+  dim3 grid((sq + kBQ - 1) / kBQ, h, b);
+  flash_fwd_kernel<T, HD><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), sq, sk, group, qs, ks,
+      vs, os, scale, causal);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch(int hd, const void* q, const void* k, const void* v,
+                     void* o, int b, int h, int sq, int sk, int group,
+                     Strides qs, Strides ks, Strides vs, Strides os,
+                     float scale, int causal, cudaStream_t stream) {
+  switch (hd) {
+    case 16:
+      return launch<T, 16>(q, k, v, o, b, h, sq, sk, group, qs, ks, vs, os,
+                           scale, causal, stream);
+    case 32:
+      return launch<T, 32>(q, k, v, o, b, h, sq, sk, group, qs, ks, vs, os,
+                           scale, causal, stream);
+    case 64:
+      return launch<T, 64>(q, k, v, o, b, h, sq, sk, group, qs, ks, vs, os,
+                           scale, causal, stream);
+    case 128:
+      return launch<T, 128>(q, k, v, o, b, h, sq, sk, group, qs, ks, vs,
+                             os, scale, causal, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// q [B,H,Sq,hd], k/v [B,KV,Sk,hd], o [B,H,Sq,hd] given as element strides
+// (batch, seq, head) with the head dim contiguous; dtype 0 = f32,
+// 1 = bf16 (q, k, v and o alike).  Returns the launch's cudaError_t.
+extern "C" int flash_attention_launch(
+    const void* q, const void* k, const void* v, void* o, int b, int h,
+    int kvh, int sq, int sk, int hd, int64_t qsb, int64_t qss, int64_t qsh,
+    int64_t ksb, int64_t kss, int64_t ksh, int64_t vsb, int64_t vss,
+    int64_t vsh, int64_t osb, int64_t oss, int64_t osh, float scale,
+    int causal, int dtype, void* stream) {
+  const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh},
+      os{osb, oss, osh};
+  const int group = h / kvh;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return dispatch<float>(hd, q, k, v, o, b, h, sq, sk, group, qs, ks, vs,
+                           os, scale, causal, st);
+  if (dtype == 1)
+    return dispatch<__nv_bfloat16>(hd, q, k, v, o, b, h, sq, sk, group, qs,
+                                   ks, vs, os, scale, causal, st);
+  return cudaErrorInvalidValue;
+}

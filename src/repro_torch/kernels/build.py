@@ -4,8 +4,9 @@ Each kernel source under ``src/repro_torch/csrc/`` exposes a plain C entry
 point.  At first use it is compiled for Hopper (``sm_90a``) into a shared
 library under ``build/repro_torch/`` at the root of the checkout, named by
 a hash of its source and flags, so an edited source rebuilds and an
-unchanged one loads at once.  There is no fallback: a missing ``nvcc`` or
-a failed build raises.
+unchanged one loads at once.  ``build_all`` compiles several sources at
+once, one ``nvcc`` process each.  There is no fallback: a missing
+``nvcc`` or a failed build raises.
 """
 from __future__ import annotations
 
@@ -45,33 +46,47 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless a library of that hash exists."""
-    out = library_path(name)
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+def build_all(names) -> list[Path]:
+    """Compile every ``csrc/<name>.cu`` not built yet, one ``nvcc`` per
+    source, all started together; raise if any build fails."""
+    outs = [library_path(n) for n in names]
+    jobs = []
     try:
-        proc = subprocess.run(
-            [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
-            capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed to build {name}.cu:\n"
-                               f"{proc.stdout}{proc.stderr}")
-        BUILD_LOGS[name] = proc.stdout + proc.stderr
-        os.replace(tmp, out)        # atomic: concurrent builders agree
+        for name, out in zip(names, outs):
+            if out.exists():
+                continue
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            jobs.append((name, out, tmp, subprocess.Popen(
+                [find_nvcc(), *NVCC_FLAGS, "-o", tmp,
+                 str(CSRC / f"{name}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        failed = []
+        for name, out, tmp, proc in jobs:
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed to build {name}.cu:\n{log}")
+                continue
+            BUILD_LOGS[name] = log
+            os.replace(tmp, out)    # atomic: concurrent builders agree
+        if failed:
+            raise RuntimeError("\n".join(failed))
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out
+        for _, _, tmp, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    return outs
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use."""
     lib = _LOADED.get(name)
     if lib is None:
-        lib = ctypes.CDLL(str(build(name)))
+        lib = ctypes.CDLL(str(build_all([name])[0]))
         _LOADED[name] = lib
     return lib

@@ -1,0 +1,2 @@
+"""Flash attention: the CUDA kernel, its plain version and the model-layout
+wrapper."""

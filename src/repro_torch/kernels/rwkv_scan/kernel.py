@@ -1,0 +1,109 @@
+"""The WKV6 recurrence on Hopper: a hand-written CUDA C++ kernel bound with
+ctypes.
+
+* **Replaces** the Pallas TPU kernel
+  ``repro/kernels/rwkv_scan/kernel.py::wkv6``: per (batch, head),
+  o_t = r_t (S_{t-1} + diag(u) k_tᵀ v_t) and
+  S_t = diag(w_t) S_{t-1} + k_tᵀ v_t with an [N, N] f32 state; f32 or bf16
+  in, f32 out.
+* **Bound:** bytes.  r, k, v, w in and o out once each (5·B·H·T·N·4 B in
+  f32: 671 MB, 0.200 ms at 3.35 TB/s for RWKV6-1.6B's B=4, T=4096, H=32,
+  N=64) against about 4·N² flops per token and head (8.6e9 flops, 0.128 ms
+  at the H100 SXM's 67 TFLOP/s f32 rate).
+* **Design:** simple and right first (``src/repro_torch/csrc/wkv6.cu``): one
+  block of N threads per (batch, head) stepping over T, thread m holding
+  column m of the state in registers, r/k/w of each step staged in
+  double-buffered shared memory and the next step prefetched.  With only
+  B·H blocks it is latency-bound; a chunked formulation is a later design.
+  Tensors are addressed through strides, so the model layout [B,T,H,N]
+  runs without a copy.
+
+For a CPU tensor the wrapper runs the plain version
+(:func:`repro_torch.kernels.rwkv_scan.ref.wkv6_ref`); for a CUDA tensor it
+launches the kernel or raises.  ``wkv6.launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.rwkv_scan.ref import wkv6_ref
+
+#: State widths the kernel is compiled for.
+HEAD_SIZES = (16, 32, 64)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+             + [ctypes.c_int64] * 6 + [ctypes.c_int, ctypes.c_void_p])
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.load("wkv6")
+    fn = lib.wkv6_launch
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _check(r, k, v, w, u, out) -> None:
+    if r.ndim != 4:
+        raise ValueError(f"r must be [B, H, T, N], got {tuple(r.shape)}")
+    b, h, t, n = r.shape
+    if r.dtype not in _DTYPES:
+        raise TypeError(f"inputs must be float32 or bfloat16, not {r.dtype}")
+    for name, x in (("k", k), ("v", v), ("w", w)):
+        if x.shape != r.shape or x.dtype != r.dtype:
+            raise ValueError(f"{name} must be {r.dtype} {tuple(r.shape)}, "
+                             f"got {x.dtype} {tuple(x.shape)}")
+        if x.stride() != r.stride():
+            raise ValueError(f"{name} must share r's strides")
+    if tuple(u.shape) != (h, n) or u.dtype != r.dtype:
+        raise ValueError(f"u must be {r.dtype} {(h, n)}, got {u.dtype} "
+                         f"{tuple(u.shape)}")
+    if n not in HEAD_SIZES:
+        raise ValueError(f"head size {n} not in {HEAD_SIZES}")
+    tensors = [("r", r), ("k", k), ("v", v), ("w", w), ("u", u)]
+    if out is not None:
+        if out.shape != r.shape or out.dtype != torch.float32:
+            raise ValueError(f"out must be float32 {tuple(r.shape)}")
+        tensors.append(("out", out))
+    for name, x in tensors:
+        if x.device != r.device:
+            raise ValueError(f"{name} is on {x.device}, r on {r.device}")
+        if x.stride(-1) != 1:
+            raise ValueError(f"{name}'s last dim must be contiguous")
+    if not u.is_contiguous():
+        raise ValueError("u must be contiguous")
+
+
+def wkv6(r, k, v, w, u, *, out: torch.Tensor | None = None) -> torch.Tensor:
+    """r/k/v/w: [B, H, T, N] (shared strides, N contiguous); u: [H, N]
+    -> o [B, H, T, N] float32, written into ``out`` when given."""
+    _check(r, k, v, w, u, out)
+    dev = r.device
+    if dev.type == "cpu":
+        o = wkv6_ref(r, k, v, w, u)
+        return o if out is None else out.copy_(o)
+    if dev.type != "cuda":
+        raise ValueError(f"wkv6 runs on cpu or cuda, not {dev}")
+    if out is None:
+        out = torch.empty(r.shape, dtype=torch.float32, device=dev)
+    b, h, t, n = r.shape
+    if out.numel() == 0:
+        return out
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = _lib().wkv6_launch(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
+        out.data_ptr(), b, h, t, n, r.stride(0), r.stride(1), r.stride(2),
+        out.stride(0), out.stride(1), out.stride(2), _DTYPES[r.dtype],
+        stream)
+    if rc != 0:
+        raise RuntimeError(f"wkv6 launch failed: CUDA error {rc}")
+    wkv6.launches += 1
+    return out
+
+
+wkv6.launches = 0

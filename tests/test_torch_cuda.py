@@ -1,0 +1,175 @@
+"""PyTorch port on the card: each CUDA kernel against its plain version, and
+the reduced models on the card (kernels) against the CPU (plain versions).
+
+Imports neither JAX nor the JAX package, so a GPU host without JAX
+collects it:
+
+    python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Without a card every test skips.  Tolerances: leaf search exact; flash
+attention 2e-5 in f32 and 3e-2 in bf16 at the reference kernel test's
+shapes (tests/test_kernels.py), 4e-3 absolute plus 1e-2 relative in bf16
+at the models' widths; WKV6 1e-4 in f32 and 0.15 in bf16; the reduced
+models 1e-4 in f32."""
+import copy
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import configs as TC
+from repro_torch.kernels.flash_attention.kernel import flash_attention
+from repro_torch.kernels.flash_attention.ops import flash_sdpa
+from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.leaf_search.kernel import leaf_search
+from repro_torch.kernels.leaf_search.ref import leaf_search_ref
+from repro_torch.kernels.rwkv_scan.kernel import wkv6
+from repro_torch.kernels.rwkv_scan.ops import wkv6_seq
+from repro_torch.kernels.rwkv_scan.ref import wkv6_ref
+from repro_torch.models import registry as TREG
+
+pytestmark = [pytest.mark.cuda,
+              pytest.mark.skipif(not torch.cuda.is_available(),
+                                 reason="needs a CUDA device")]
+
+
+def close(got, want, atol, rtol):
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), atol=atol,
+                               rtol=rtol)
+
+
+# --------------------------------------------------------------------------
+# leaf search: bit for bit
+# --------------------------------------------------------------------------
+
+def leaf_inputs(seed, b, f):
+    """The reference kernel test's generator (tests/test_kernels.py)."""
+    rng = np.random.default_rng(seed)
+    keys = np.stack([rng.choice(9_000, f, replace=False)
+                     for _ in range(b)]).astype(np.int32)
+    vals = rng.integers(0, 1 << 20, (b, f)).astype(np.int32)
+    q = np.where(rng.random(b) < 0.5,
+                 keys[np.arange(b), rng.integers(0, f, b)],
+                 20_000 + np.arange(b)).astype(np.int32)
+    fev = rng.integers(0, 4, (b, f)).astype(np.int32)
+    rev = fev.copy()
+    rev[: b // 8] += 1
+    fnv = rng.integers(0, 4, b).astype(np.int32)
+    rnv = fnv.copy()
+    rnv[b // 8: b // 4] += 1
+    free = np.zeros(b, np.int32)
+    free[b // 4: b // 4 + 4] = 1
+    return [q, keys, vals, fev, rev, fnv, rnv, free]
+
+
+@pytest.mark.parametrize("b,f", [(256, 8), (512, 16), (1000, 16), (1, 16),
+                                 (256, 64)])
+def test_leaf_search_kernel_matches_plain_version(b, f):
+    args = [torch.from_numpy(a).cuda() for a in leaf_inputs(b, b, f)]
+    n0 = leaf_search.launches
+    got = leaf_search(*args)
+    want = leaf_search_ref(*args)
+    torch.cuda.synchronize()
+    assert leaf_search.launches == n0 + 1
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+# --------------------------------------------------------------------------
+# flash attention
+# --------------------------------------------------------------------------
+
+# (B, H, KV, S, hd, causal, dtype, atol, rtol): the reference kernel
+# test's shapes, two ragged ones, and the models' widths
+FLASH_CASES = [(2, 4, 2, 256, 64, True, "float32", 2e-5, 2e-5),
+               (1, 8, 8, 128, 128, False, "float32", 2e-5, 2e-5),
+               (2, 2, 1, 512, 32, True, "float32", 2e-5, 2e-5),
+               (1, 4, 4, 256, 64, True, "bfloat16", 3e-2, 3e-2),
+               (3, 6, 2, 128, 64, False, "float32", 2e-5, 2e-5),
+               (2, 4, 2, 77, 64, True, "float32", 2e-5, 2e-5),
+               (1, 6, 3, 130, 16, False, "bfloat16", 3e-2, 3e-2),
+               (1, 32, 8, 512, 128, True, "float32", 2e-5, 2e-5),
+               (1, 32, 8, 512, 128, True, "bfloat16", 4e-3, 1e-2),
+               (1, 9, 3, 300, 64, True, "float32", 2e-5, 2e-5),
+               (1, 9, 3, 300, 64, True, "bfloat16", 4e-3, 1e-2)]
+
+
+@pytest.mark.parametrize("b,h,kv,s,hd,causal,dtype,atol,rtol", FLASH_CASES)
+def test_flash_attention_kernel_matches_plain_version(b, h, kv, s, hd, causal,
+                                                      dtype, atol, rtol):
+    rng = np.random.default_rng(b * s + hd)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+               .to(getattr(torch, dtype)).cuda()
+               for shape in ((b, h, s, hd), (b, kv, s, hd), (b, kv, s, hd)))
+    n0 = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal)
+    want = attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == n0 + 1
+    assert got.dtype == q.dtype
+    close(got, want, atol, rtol)
+    # the model layout, through strides
+    qm, km, vm = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    got_m = flash_sdpa(qm, km, vm, causal=causal)
+    assert flash_attention.launches == n0 + 2
+    assert torch.equal(got_m.transpose(1, 2), got)
+
+
+# --------------------------------------------------------------------------
+# WKV6
+# --------------------------------------------------------------------------
+
+WKV_TOL = {"float32": 1e-4, "bfloat16": 0.15}
+
+
+@pytest.mark.parametrize("b,h,t,n,dtype", [
+    (2, 3, 256, 32, "float32"), (1, 2, 128, 64, "float32"),
+    (2, 1, 512, 16, "float32"), (1, 2, 128, 64, "bfloat16"),
+    (2, 3, 77, 32, "float32"), (1, 2, 33, 64, "bfloat16"),
+    (1, 32, 300, 64, "float32")])                  # rwkv6-1.6b widths
+def test_wkv6_kernel_matches_plain_version(b, h, t, n, dtype):
+    """r/k/v normal, w in [0.45, 0.95), u normal: the reference kernel
+    test's generator."""
+    rng = np.random.default_rng(b * t + n)
+    host = [rng.standard_normal((b, h, t, n)) for _ in range(3)]
+    host.append(rng.random((b, h, t, n)) * 0.5 + 0.45)
+    host.append(rng.standard_normal((h, n)))
+    args = [torch.from_numpy(a.astype(np.float32)).to(getattr(torch, dtype))
+            .cuda() for a in host]
+    n0 = wkv6.launches
+    got = wkv6(*args)
+    want = wkv6_ref(*args)
+    torch.cuda.synchronize()
+    assert wkv6.launches == n0 + 1
+    assert got.dtype == torch.float32
+    close(got, want, WKV_TOL[dtype], WKV_TOL[dtype])
+    # the model layout, through strides
+    got_m = wkv6_seq(*(x.transpose(1, 2).contiguous() for x in args[:4]),
+                     args[4])
+    assert wkv6.launches == n0 + 2
+    assert torch.equal(got_m.transpose(1, 2), got)
+
+
+# --------------------------------------------------------------------------
+# the reduced models: card against CPU
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", ["smollm_135m", "granite_3_8b",
+                                  "rwkv6_1_6b"])
+def test_model_on_the_card_matches_cpu(name):
+    """The same weights on the card (kernels) and on the CPU (plain
+    versions) give the same logits within 1e-4 in f32."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = TC.get_reduced(name)
+    cpu = TREG.build(cfg, device="cpu")
+    model = cpu.init(torch.Generator().manual_seed(0))
+    gpu = TREG.build(cfg, device="cuda")
+    model_gpu = copy.deepcopy(model).to("cuda")
+    batch = TREG.make_batch(cfg, 2, 40, torch.Generator().manual_seed(1),
+                            "cpu")
+    kernel = flash_attention if cfg.family == "dense" else wkv6
+    n0 = kernel.launches
+    got = gpu.forward(model_gpu, {"tokens": batch["tokens"].cuda()})
+    assert kernel.launches == n0 + cfg.n_layers
+    close(got, cpu.forward(model, batch), 1e-4, 1e-4)

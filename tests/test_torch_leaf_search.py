@@ -2,7 +2,7 @@
 tensors against the reference's Pallas kernel (interpret mode) and its jnp
 oracle, on the reference kernel test's shapes, a ragged batch and the tree's
 own uint8 versions; the pool wrapper on a bulkloaded tree; the CUDA kernel
-against the plain version where a card is present.  Tolerance: exact."""
+against the plain version is in test_torch_cuda.py.  Tolerance: exact."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -120,22 +120,3 @@ def test_lookup_leaves_on_a_bulkloaded_tree():
                         torch.from_numpy(q))
     assert_outputs_equal(want, got)
     assert not np.asarray(want[2]).all()          # the torn lanes showed
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("b,f", [(256, 8), (512, 16), (1000, 16), (1, 16),
-                                 (256, 64)])
-def test_cuda_kernel_matches_plain_version(b, f):
-    """Runs where a card is present (``python3 chip_smoke.py`` covers the
-    same on the chip)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    host = make_inputs(b, b, f)
-    args = [torch.from_numpy(a).cuda() for a in host]
-    n0 = leaf_search.launches
-    got = leaf_search(*args)
-    want = leaf_search_ref(*args)
-    torch.cuda.synchronize()
-    assert leaf_search.launches == n0 + 1
-    for g, w in zip(got, want):
-        assert g.dtype == w.dtype and torch.equal(g, w)

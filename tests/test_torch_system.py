@@ -224,7 +224,12 @@ def test_entry_points_default_to_cuda(monkeypatch):
 
 def test_port_imports_neither_jax_nor_the_reference():
     code = ("import sys, repro_torch.workloads, repro_torch.core, "
-            "repro_torch.kernels.leaf_search.ops\n"
+            "repro_torch.kernels.leaf_search.ops, repro_torch.configs, "
+            "repro_torch.models.registry, "
+            "repro_torch.kernels.flash_attention.ops, "
+            "repro_torch.kernels.rwkv_scan.ops\n"
+            "from repro_torch.configs import get\n"
+            "[get(n) for n in repro_torch.configs.ALL_ARCHS]\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.'))\n"
@@ -232,5 +237,21 @@ def test_port_imports_neither_jax_nor_the_reference():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, check=True,
                          env={"PYTHONPATH": "src", "PATH": "/usr/bin:/bin"},
+                         cwd=__file__.rsplit("/tests/", 1)[0])
+    assert out.stdout.strip() == "[]", out.stdout + out.stderr
+
+
+def test_card_test_module_imports_neither_jax_nor_the_reference():
+    """tests/test_torch_cuda.py must be collectable on a GPU host that has
+    no JAX."""
+    code = ("import sys, test_torch_cuda\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'repro' or "
+            "m.startswith('repro.'))\n"
+            "print(bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, check=True,
+                         env={"PYTHONPATH": "src:tests",
+                              "PATH": "/usr/bin:/bin"},
                          cwd=__file__.rsplit("/tests/", 1)[0])
     assert out.stdout.strip() == "[]", out.stdout + out.stderr

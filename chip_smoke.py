@@ -9,12 +9,17 @@ Phases, in order; any failure raises and exits non-zero:
 
 1. device  — require CUDA; print the card's name and power limit;
 2. build   — compile the three kernels from ``src/repro_torch/csrc``, one
-   ``nvcc`` per source, all started together;
+   ``nvcc`` per source, all started together; print ptxas's registers,
+   spills and performance notes per kernel (raise on a spill) and the
+   count of ``HGMMA`` (wgmma) instructions in the flash library's SASS
+   (raise if 0);
 3. kernel  — hold each CUDA kernel against its plain version on the card
    (leaf search bit for bit; flash attention and WKV6 within the reference
    kernel test's tolerances) at the reference kernel test's shapes, a
-   ragged shape and the main paths' shapes, and time kernel, plain version
-   and (for attention) PyTorch's SDPA on the device and per eager call;
+   ragged shape and the main paths' shapes (flash attention on both of its
+   routes: ``wgmma`` for bf16 at hd 64 and 128, ``fma`` otherwise), and
+   time kernel, plain version and (for attention) PyTorch's SDPA on the
+   device and per eager call;
 4. parity  — ``run_systems`` for ``sherman`` and ``fg+`` on the quick
    YCSB-A spec on the card and on the CPU: the RunResults must be equal;
 5. deploy  — the paper-scale index (1B records, 80% full leaves, height 8)
@@ -24,7 +29,8 @@ Phases, in order; any failure raises and exits non-zero:
    the same weights on the card (kernels) and on the CPU (plain
    versions) give the same prefill, decode and forward logits;
 7. granite — granite-3-8b at full width in bf16: prefill of 4 × 4096
-   tokens, 64 decode steps, and prefill + decode == forward at 512 tokens;
+   tokens (its 40 flash launches all on the ``wgmma`` route), 64 decode
+   steps, and prefill + decode == forward at 512 tokens;
 8. rwkv    — rwkv6-1.6b at full width: forward and loss over 4 × 4096
    tokens in bf16; step-by-step decode == forward on the bf16 model's
    first two layers at 64 tokens, and on the whole model in f32 at 256
@@ -42,6 +48,8 @@ import gc
 import json
 import math
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -63,8 +71,10 @@ MAIN_PATH_SHAPE = (512, 16)     # lookup bucket at batch 1024, 50% reads
 
 # flash attention (B, H, KV, S, hd, causal, dtype, atol, rtol): the
 # reference kernel test's shapes at its tolerances (2e-5 in f32, 3e-2 in
-# bf16), two ragged ones, and the dense prefill's (smollm-135m, then
-# granite-3-8b, at 4 x 4096 tokens), the last being the main path's.  At
+# bf16), two ragged ones, the wgmma route's cases of
+# tests/test_torch_cuda.py (bf16 at hd 64 and 128: causal and full, GQA
+# groups 1, 3 and 4, ragged S of 77, 300 and 4097) and the dense
+# prefill's (smollm-135m, then granite-3-8b, at 4 x 4096 tokens).  At
 # S = 4096 a row's output has std ~(e/(row+1))^0.5, ~0.03 over most rows,
 # so 3e-2 would pass a kernel that dropped key tiles there: the prefill
 # shapes are held in f32 at 2e-5, and in bf16 at 4e-3 absolute plus 1e-2
@@ -77,10 +87,23 @@ FLASH_SHAPES = [(2, 4, 2, 256, 64, True, "float32", 2e-5, 2e-5),
                 (3, 6, 2, 128, 64, False, "float32", 2e-5, 2e-5),
                 (2, 4, 2, 77, 64, True, "float32", 2e-5, 2e-5),
                 (1, 6, 3, 130, 16, False, "bfloat16", 3e-2, 3e-2),
+                (1, 4, 4, 256, 64, False, "bfloat16", 4e-3, 1e-2),
+                (2, 6, 2, 256, 64, True, "bfloat16", 4e-3, 1e-2),
+                (2, 8, 2, 256, 128, True, "bfloat16", 4e-3, 1e-2),
+                (1, 8, 2, 256, 128, False, "bfloat16", 4e-3, 1e-2),
+                (2, 9, 3, 77, 64, True, "bfloat16", 4e-3, 1e-2),
+                (1, 4, 1, 300, 128, False, "bfloat16", 4e-3, 1e-2),
+                (1, 2, 2, 4097, 128, True, "bfloat16", 4e-3, 1e-2),
+                (1, 3, 1, 4097, 64, False, "bfloat16", 4e-3, 1e-2),
                 (4, 9, 3, 4096, 64, True, "float32", 2e-5, 2e-5),
                 (4, 32, 8, 4096, 128, True, "float32", 2e-5, 2e-5),
                 (4, 9, 3, 4096, 64, True, "bfloat16", 4e-3, 1e-2),
                 (4, 32, 8, 4096, 128, True, "bfloat16", 4e-3, 1e-2)]
+# the prefill shapes timed: both on the wgmma route (granite's is the
+# main path's, the kernels line's), and granite's in f32 on the fma route
+FLASH_TIMED = [(4, 9, 3, 4096, 64, "bfloat16"),
+               (4, 32, 8, 4096, 128, "bfloat16"),
+               (4, 32, 8, 4096, 128, "float32")]
 # WKV6 (B, H, T, N, dtype): the reference kernel test's shapes, two ragged
 # ones, and rwkv6-1.6b's forward over 4 x 4096 tokens (f32 r/k/v/w, the
 # main path's).
@@ -191,6 +214,38 @@ def _check_close(torch, got, want, atol: float, rtol: float,
         raise AssertionError(f"{what}: max abs error {float(err.max())} "
                              f"beyond atol {atol} rtol {rtol}")
     return float(err.max())
+
+
+def phase_build_report(names, libs, logs) -> None:
+    """Print ptxas's registers, spills and performance notes for each
+    kernel instantiation (raise on a spill) and the count of HGMMA (wgmma)
+    instructions in the flash library's SASS (raise if 0)."""
+    spills = []
+    for name in names:
+        if name not in logs:
+            log(f"build   {name}: already built, no ptxas log")
+        for ln in logs.get(name, "").splitlines():
+            entry = re.search(r"Compiling entry function '(\w+)'", ln)
+            if entry:
+                log(f"build   {name}: {entry.group(1)}")
+            elif ("registers" in ln or "spill" in ln or "Potential" in ln
+                  or "setmaxnreg" in ln):
+                log(f"build   {name}:   {ln.strip()}")
+            stores = re.search(r"(\d+) bytes spill stores", ln)
+            if stores and int(stores.group(1)):
+                spills.append(f"{name}: {ln.strip()}")
+    if spills:
+        raise AssertionError("register spills: " + "; ".join(spills))
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", str(libs["flash_attention"])],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    n_hgmma = sum("HGMMA" in ln for ln in sass.splitlines())
+    log(f"build   flash_attention: {n_hgmma} HGMMA instructions in the SASS "
+        f"({cuobjdump} -sass)")
+    if n_hgmma == 0:
+        raise AssertionError("the flash library has no wgmma (HGMMA) "
+                             "instruction")
 
 
 def phase_kernel(torch, leaf_search, leaf_search_ref):
@@ -359,11 +414,12 @@ def phase_deploy(torch, leaf_search, records: int, nodes_per_ms: int):
     return launches
 
 
-def phase_flash(torch, flash_attention, attention_ref):
+def phase_flash(torch, flash_attention, attention_ref, route_of):
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda").manual_seed(11)
     max_err = 0.0
     torch.cuda.reset_peak_memory_stats()
+    timed = {}
     for b, h, kv, s, hd, causal, dt, atol, rtol in FLASH_SHAPES:
         dtype = getattr(torch, dt)
         q, k, v = (torch.randn((b, n, s, hd), generator=gen, device="cuda")
@@ -376,37 +432,55 @@ def phase_flash(torch, flash_attention, attention_ref):
                            f"hd={hd} {dt}")
         max_err = max(max_err, err)
         log(f"kernel  flash_attention B={b} H={h} KV={kv} S={s} hd={hd} "
-            f"causal={causal} {dt}: max abs error {err} (atol {atol} rtol "
-            f"{rtol}; max |out| {float(want.float().abs().max())})")
+            f"causal={causal} {dt} ({route_of(dtype, hd)} route): max abs "
+            f"error {err} (atol {atol} rtol {rtol}; max |out| "
+            f"{float(want.float().abs().max())})")
+        if (b, h, kv, s, hd, dt) in FLASH_TIMED and causal:
+            timed[(b, h, kv, s, hd, dt)] = (q, k, v)
         del got, want
         torch.cuda.empty_cache()
-    # the main path's shape (granite-3-8b prefill) is the last one
-    kernel = lambda: flash_attention(q, k, v, causal=True)
-    plain = lambda: attention_ref(q, k, v, causal=True)
-    library = lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True)
-    ms = device_ms(torch, kernel, reps=5, samples=5)
-    call_ms = host_ms(torch, kernel, reps=5, samples=5)
-    plain_ms = host_ms(torch, plain, reps=2, samples=3)
-    lib_ms = device_ms(torch, library, reps=20, samples=5)
-    # the work: 4·hd flops per unmasked (query, key) pair and head, against
-    # q, k, v and o moved once
-    pairs = s * (s + 1) // 2
-    n_ops = 4 * b * h * pairs * hd
-    n_bytes = 2 * (2 * b * s * h * hd + 2 * b * s * kv * hd)
-    ops_ms = n_ops / BF16_TENSOR_OPS_S * 1e3
-    bytes_ms = n_bytes / HBM_BYTES_S * 1e3
-    log(f"kernel  flash_attention B={b} H={h} KV={kv} S={s} hd={hd} bf16 "
-        f"causal: device {ms:.6f} ms (CUDA graph of 5 calls); per eager "
-        f"call {call_ms:.6f} ms; plain {plain_ms:.6f} ms per eager call; "
-        f"SDPA {lib_ms:.6f} ms (CUDA graph of 20 calls); bound "
-        f"{max(ops_ms, bytes_ms):.6f} ms ({n_ops} flops at bf16 tensor "
-        f"peak {ops_ms:.6f} ms, {n_bytes} bytes {bytes_ms:.6f} ms); "
-        f"{_peak(torch)}")
-    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=max(ops_ms, bytes_ms),
-                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-                host_ms=call_ms, library_ms=lib_ms)
+    numbers = None
+    for key in FLASH_TIMED:
+        b, h, kv, s, hd, dt = key
+        q, k, v = timed.pop(key)
+        route = route_of(q.dtype, hd)
+        reps = 20 if route == "wgmma" else 3
+        kernel = lambda: flash_attention(q, k, v, causal=True)
+        library = lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True)
+        ms = device_ms(torch, kernel, reps=reps, samples=5)
+        call_ms = host_ms(torch, kernel, reps=reps, samples=5)
+        lib_ms = device_ms(torch, library, reps=reps, samples=5)
+        # the work: 4·hd flops per unmasked (query, key) pair and head, at
+        # the tensor cores' bf16 rate in bf16 and the FMA units' in f32,
+        # against q, k, v and o moved once
+        pairs = s * (s + 1) // 2
+        n_ops = 4 * b * h * pairs * hd
+        n_bytes = q.element_size() * (2 * b * s * h * hd + 2 * b * s * kv * hd)
+        rate = BF16_TENSOR_OPS_S if dt == "bfloat16" else SCALAR_OPS_S
+        ops_ms = n_ops / rate * 1e3
+        bytes_ms = n_bytes / HBM_BYTES_S * 1e3
+        bound_ms = max(ops_ms, bytes_ms)
+        line = (f"kernel  flash_attention B={b} H={h} KV={kv} S={s} hd={hd} "
+                f"{dt} causal ({route} route): device {ms:.6f} ms (CUDA "
+                f"graph of {reps} calls); per eager call {call_ms:.6f} ms; "
+                f"SDPA {lib_ms:.6f} ms (CUDA graph of {reps} calls); bound "
+                f"{bound_ms:.6f} ms ({n_ops} flops at {dt} peak "
+                f"{ops_ms:.6f} ms, {n_bytes} bytes {bytes_ms:.6f} ms); "
+                f"{ms / bound_ms:.3f}x the bound, {ms / lib_ms:.3f}x SDPA")
+        if (h, hd, dt) == (32, 128, "bfloat16"):      # the main path's
+            plain_ms = host_ms(torch, lambda: attention_ref(
+                q, k, v, causal=True), reps=2, samples=3)
+            line += f"; plain {plain_ms:.6f} ms per eager call"
+            numbers = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                           bound_ms=bound_ms,
+                           bound_by=("operations" if ops_ms >= bytes_ms
+                                     else "bytes"),
+                           host_ms=call_ms, library_ms=lib_ms)
+        log(f"{line}; {_peak(torch)}")
+        del q, k, v
+        torch.cuda.empty_cache()
+    return numbers
 
 
 def phase_wkv(torch, wkv6, wkv6_ref):
@@ -516,14 +590,19 @@ def phase_granite(torch, get, registry, flash_attention):
     b, s, s_max, steps = 4, 4096, 4160, 64
     batch = registry.make_batch(cfg, b, s, gen)
     flash_attention.launches = 0
+    flash_attention.launches_wgmma = 0
+    flash_attention.launches_fma = 0
     t0 = time.perf_counter()
     logits, st = api.prefill(model, batch, s_max)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     launches = flash_attention.launches
-    if launches != cfg.n_layers or not bool(torch.isfinite(logits).all()):
-        raise AssertionError(f"granite prefill: launches {launches}, "
-                             "finite logits "
+    routes = {"wgmma": flash_attention.launches_wgmma,
+              "fma": flash_attention.launches_fma}
+    if launches != cfg.n_layers or routes["wgmma"] != cfg.n_layers \
+            or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"granite prefill: launches {launches} by "
+                             f"route {routes}, finite logits "
                              f"{bool(torch.isfinite(logits).all())}")
     tok = logits.argmax(-1)
     finite = torch.ones((), dtype=torch.bool, device="cuda")
@@ -562,7 +641,7 @@ def phase_granite(torch, get, registry, flash_attention):
             for e in top))
     log(f"granite prefill {b} x {s} tokens in {prefill_s:.3f} s = "
         f"{b * s / prefill_s:.1f} tokens/s; flash_attention launches "
-        f"{launches}; decode {steps} steps at batch {b} (s_max {s_max}) in "
+        f"{launches}, by route {routes}; decode {steps} steps at batch {b} (s_max {s_max}) in "
         f"{decode_s:.3f} s = {b * steps / decode_s:.1f} tokens/s; logits "
         f"finite; {_peak(torch)}")
     # prefill + one decode step == forward at the last two positions
@@ -667,7 +746,8 @@ def main(argv=None) -> int:
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.configs import get, get_reduced
     from repro_torch.kernels import build
-    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.kernels.flash_attention.kernel import (_route,
+                                                            flash_attention)
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.leaf_search.kernel import leaf_search
     from repro_torch.kernels.leaf_search.ref import leaf_search_ref
@@ -689,19 +769,16 @@ def main(argv=None) -> int:
     # 2. build, one nvcc per source, all started together
     names = ("leaf_search", "flash_attention", "wkv6")
     t0 = time.perf_counter()
-    build.build_all(names)
+    libs = dict(zip(names, build.build_all(names)))
     log(f"build   {', '.join(n + '.cu' for n in names)} in "
         f"{time.perf_counter() - t0:.3f} s")
-    for name in names:
-        for ln in build.BUILD_LOGS.get(name, "").splitlines():
-            if "registers" in ln or "spill" in ln:
-                log(f"build   {name}: {ln.strip()}")
+    phase_build_report(names, libs, build.BUILD_LOGS)
 
     # 3. each kernel against its plain version
     numbers = {"leaf_search": phase_kernel(torch, leaf_search,
                                            leaf_search_ref),
                "flash_attention": phase_flash(torch, flash_attention,
-                                              attention_ref),
+                                              attention_ref, _route),
                "wkv6": phase_wkv(torch, wkv6, wkv6_ref)}
     torch.cuda.empty_cache()
 

@@ -1,0 +1,110 @@
+#!/usr/bin/env python3
+"""Time one build of the flash-attention library on the card, to compare
+design variants of its kernels.
+
+    python scripts/flash_variant_timing.py LABEL [CSRC_DIR] [--check]
+
+Builds ``CSRC_DIR/flash_attention.cu`` (default: the repo's
+``src/repro_torch/csrc``; a variant is a copy of that directory with an
+edit) into ``build/repro_torch/``, prints the wgmma kernels' ptxas lines
+(registers, spills, performance notes) and the library's HGMMA count, with
+``--check`` holds it against the plain version on ragged, GQA and prefill
+cases at 4e-3 + 1e-2, then times the bf16 causal prefill shapes of
+smollm-135m and granite-3-8b (B=4, S=4096) beside PyTorch's SDPA: the
+median over 7 samples of 20 back-to-back calls, CUDA events.
+
+Each library links its own CUDA runtime, so run one variant per process,
+and compare variants inside one machine's run in turns (A B B A).
+Imports nothing of JAX.
+"""
+from __future__ import annotations
+
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.flash_attention.kernel import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+
+# (B, H, KV, S, hd, causal): ragged, GQA, full and causal, then the two
+# prefill shapes, which are also timed
+CASES = [(1, 2, 2, 128, 64, False), (1, 4, 1, 300, 128, False),
+         (2, 8, 2, 256, 128, True), (2, 9, 3, 77, 64, True),
+         (1, 2, 2, 4097, 128, True), (1, 3, 1, 4097, 64, False),
+         (4, 32, 8, 4096, 128, True), (4, 9, 3, 4096, 64, True)]
+
+
+def event_ms(fn, reps: int = 20, samples: int = 7) -> float:
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(samples):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return float(np.median(times))
+
+
+def main() -> int:
+    args = [a for a in sys.argv[1:] if a != "--check"]
+    label = args[0]
+    if len(args) > 1:
+        build.CSRC = Path(args[1]).resolve()
+    lib = build.build_all(["flash_attention"])[0]
+    lines = build.BUILD_LOGS.get("flash_attention", "").splitlines()
+    for i, ln in enumerate(lines):
+        if "Potential" in ln or "setmaxnreg" in ln:
+            print(f"[{label}] {ln.strip()}")
+        if "Compiling entry" in ln and "flash_wgmma_kernel" in ln:
+            hd = ln.split("kernelILi")[1].split("E")[0]
+            for nxt in lines[i + 1:i + 4]:
+                if "registers" in nxt or "spill" in nxt:
+                    print(f"[{label}] hd {hd}: {nxt.strip()}")
+    sass = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    print(f"[{label}] HGMMA {sum('HGMMA' in ln for ln in sass.splitlines())}",
+          flush=True)
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def inputs(b, h, kv, s, hd):
+        return [torch.randn((b, n, s, hd), generator=gen, device="cuda")
+                .to(torch.bfloat16) for n in (h, kv, kv)]
+
+    if "--check" in sys.argv:
+        for case in CASES:
+            q, k, v = inputs(*case[:5])
+            got = flash_attention(q, k, v, causal=case[5]).float()
+            want = attention_ref(q, k, v, causal=case[5]).float()
+            err = (got - want).abs()
+            ok = bool((err <= 4e-3 + 1e-2 * want.abs()).all())
+            print(f"[{label}] case {case}: max abs error {float(err.max())} "
+                  f"ok {ok}", flush=True)
+            if not ok:
+                return 1
+    for case in CASES[-2:]:
+        q, k, v = inputs(*case[:5])
+        ms = event_ms(lambda: flash_attention(q, k, v, causal=True))
+        sdpa = event_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True))
+        print(f"[{label}] hd {case[4]} ms {ms:.6f} sdpa {sdpa:.6f}",
+              flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

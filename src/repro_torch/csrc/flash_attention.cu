@@ -1,7 +1,12 @@
 // Causal or full grouped-query attention with an online softmax, for
 // Hopper (sm_90a).  Replaces the Pallas TPU kernel
-// repro/kernels/flash_attention/kernel.py::flash_attention.
+// repro/kernels/flash_attention/kernel.py::flash_attention.  Two kernels
+// share the entry point flash_attention_launch, and the caller names the
+// route: "wgmma" (bf16 at head dims 64 and 128, on the tensor cores; see
+// flash_attention_wgmma.cuh) and "fma" (below: f32 at every head dim, bf16
+// at 16 and 32).
 //
+// The FMA kernel:
 // For each (b, h, query row i), with g = h / (H / KV) the shared KV head:
 //   s_j = (q_i . k_j) * hd^-0.5,   masked to NEG_INF where causal && j > i
 //   o_i = sum_j softmax(s)_j v_j
@@ -27,11 +32,15 @@
 // Bound: at the dense prefill's shapes the function needs 4*B*H*pairs*hd
 // flops (pairs = the unmasked (i, j) pairs), which at the H100's bf16
 // tensor-core rate take longer than moving q, k, v and o once; this kernel
-// runs on the f32 FMA units instead (no wgmma, no TMA) and is far from
-// that bound.  Tensor cores are a later design.
+// runs on the f32 FMA units (f32 must stay exact to 2e-5, which TF32
+// tensor cores cannot give) and is far from that bound.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "flash_attention_wgmma.cuh"
 
 namespace {
 
@@ -50,9 +59,7 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
-struct Strides {
-  int64_t b, s, h;
-};
+using fa_wgmma::Strides;
 
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
@@ -180,11 +187,14 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+// f32 at every head dim; bf16 only at 16 and 32 (at 64 and 128 bf16 takes
+// the wgmma route, so those instantiations are not built).
 template <typename T>
 cudaError_t dispatch(int hd, const void* q, const void* k, const void* v,
                      void* o, int b, int h, int sq, int sk, int group,
                      Strides qs, Strides ks, Strides vs, Strides os,
                      float scale, int causal, cudaStream_t stream) {
+  constexpr bool kAllDims = std::is_same<T, float>::value;
   switch (hd) {
     case 16:
       return launch<T, 16>(q, k, v, o, b, h, sq, sk, group, qs, ks, vs, os,
@@ -193,11 +203,15 @@ cudaError_t dispatch(int hd, const void* q, const void* k, const void* v,
       return launch<T, 32>(q, k, v, o, b, h, sq, sk, group, qs, ks, vs, os,
                            scale, causal, stream);
     case 64:
-      return launch<T, 64>(q, k, v, o, b, h, sq, sk, group, qs, ks, vs, os,
-                           scale, causal, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, o, b, h, sq, sk, group, qs, ks, vs,
+      if constexpr (kAllDims)
+        return launch<T, 64>(q, k, v, o, b, h, sq, sk, group, qs, ks, vs,
                              os, scale, causal, stream);
+      return cudaErrorInvalidValue;
+    case 128:
+      if constexpr (kAllDims)
+        return launch<T, 128>(q, k, v, o, b, h, sq, sk, group, qs, ks, vs,
+                              os, scale, causal, stream);
+      return cudaErrorInvalidValue;
     default:
       return cudaErrorInvalidValue;
   }
@@ -207,17 +221,31 @@ cudaError_t dispatch(int hd, const void* q, const void* k, const void* v,
 
 // q [B,H,Sq,hd], k/v [B,KV,Sk,hd], o [B,H,Sq,hd] given as element strides
 // (batch, seq, head) with the head dim contiguous; dtype 0 = f32,
-// 1 = bf16 (q, k, v and o alike).  Returns the launch's cudaError_t.
+// 1 = bf16 (q, k, v and o alike); route 0 = the FMA kernel, 1 = the wgmma
+// kernel (bf16, hd 64 or 128, every stride of a dim longer than 1 and
+// every base 16-byte aligned).  Returns the launch's cudaError_t; a route
+// that does not take the arguments is cudaErrorInvalidValue.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, int b, int h,
     int kvh, int sq, int sk, int hd, int64_t qsb, int64_t qss, int64_t qsh,
     int64_t ksb, int64_t kss, int64_t ksh, int64_t vsb, int64_t vss,
     int64_t vsh, int64_t osb, int64_t oss, int64_t osh, float scale,
-    int causal, int dtype, void* stream) {
+    int causal, int dtype, int route, void* stream) {
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh},
       os{osb, oss, osh};
   const int group = h / kvh;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (route == 1) {
+    if (dtype != 1) return cudaErrorInvalidValue;
+    if (hd == 64)
+      return fa_wgmma::launch<64>(q, k, v, o, b, h, kvh, sq, sk, qs, ks, vs,
+                                  os, scale, causal, st);
+    if (hd == 128)
+      return fa_wgmma::launch<128>(q, k, v, o, b, h, kvh, sq, sk, qs, ks,
+                                   vs, os, scale, causal, st);
+    return cudaErrorInvalidValue;
+  }
+  if (route != 0) return cudaErrorInvalidValue;
   if (dtype == 0)
     return dispatch<float>(hd, q, k, v, o, b, h, sq, sk, group, qs, ks, vs,
                            os, scale, causal, st);

@@ -3,8 +3,9 @@
 Each kernel source under ``src/repro_torch/csrc/`` exposes a plain C entry
 point.  At first use it is compiled for Hopper (``sm_90a``) into a shared
 library under ``build/repro_torch/`` at the root of the checkout, named by
-a hash of its source and flags, so an edited source rebuilds and an
-unchanged one loads at once.  ``build_all`` compiles several sources at
+a hash of its source, of every header it includes from ``csrc/`` and of
+the flags, so an edited source or header rebuilds and an unchanged one
+loads at once.  ``build_all`` compiles several sources at
 once, one ``nvcc`` process each.  There is no fallback: a missing
 ``nvcc`` or a failed build raises.
 """
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -39,11 +41,34 @@ def find_nvcc() -> str:
     return nvcc
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _sources(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and every file it includes from ``csrc/``
+    (``#include "..."``), transitively, each once."""
+    seen: list[Path] = []
+    todo = [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            dep = path.parent / inc.decode()
+            if dep.exists():
+                todo.append(dep)
+    return seen
+
+
 def library_path(name: str) -> Path:
-    """Where the library for ``csrc/<name>.cu`` is (or will be) built."""
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    """Where the library for ``csrc/<name>.cu`` is (or will be) built: named
+    by a hash of the flags and of each source file's name and bytes."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources(name):
+        data = path.read_bytes()
+        h.update(f"\0{path.name}\0{len(data)}\0".encode() + data)
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(names) -> list[Path]:

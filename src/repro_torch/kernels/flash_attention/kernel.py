@@ -12,18 +12,34 @@ ctypes.
   B=4, S=4096, H=32, KV=8, hd=128 that is 5.50e11 flops (0.556 ms at the
   H100 SXM's 989 TFLOP/s bf16 tensor rate) against 335 MB (0.100 ms at
   3.35 TB/s).
-* **Design:** simple and right first (``src/repro_torch/csrc/flash_attention.cu``):
-  one 256-thread block per 64-row query tile and head, four threads per
-  query row splitting the head dim, K/V tiles of 32 rows staged in shared
-  memory as f32, causal tiles above the diagonal skipped, ragged Sq/Sk
-  masked in the kernel.  It runs on the f32 FMA units; tensor cores
-  (``wgmma``) and TMA are a later design.  Tensors are addressed through
-  strides, so the model layout [B,S,H,hd] runs without a copy.
+* **Two routes, one entry point** (``csrc/flash_attention.cu``), picked
+  by :func:`_route` from the dtype and head dim alone:
+
+  - ``"wgmma"`` — bf16 at hd 64 and 128 (``csrc/flash_attention_wgmma.cuh``),
+    FlashAttention-3's shape: a persistent block per SM walks 128-row
+    query tiles (the longest causal ones first); two consumer warpgroups
+    of 64 rows and a producer warpgroup whose one thread loads Q and K/V
+    tiles of 128 keys with TMA into a ring of shared-memory stages
+    (mbarrier full/empty pairs, 128-byte swizzle, zero fill past Sq/Sk);
+    S = Q·Kᵀ and O += P·V on ``wgmma``, the online softmax on S's
+    accumulator fragments while the previous tile's P·V runs, the two
+    warpgroups taking turns on the tensor cores.  P is rounded to bf16 as
+    the P·V product's A operand; m, l and the accumulator stay f32.
+  - ``"fma"`` — f32 at every head dim, bf16 at hd 16 and 32: one
+    256-thread block per 64-row query tile and head, four threads per
+    row, K/V tiles of 32 rows as f32 in shared memory, P kept in f32, on
+    the f32 FMA units (f32 must stay within 2e-5 of the plain version,
+    which TF32 tensor cores cannot give).
+
+  Tensors are addressed through strides, so the model layout [B,S,H,hd]
+  runs without a copy; the ``wgmma`` route's TMA needs every stride of a
+  dim longer than 1, and every base address, 16-byte aligned.
 
 For a CPU tensor the wrapper runs the plain version
 (:func:`repro_torch.kernels.flash_attention.ref.attention_ref`); for a CUDA
-tensor it launches the kernel or raises.  ``flash_attention.launches``
-counts kernel launches.
+tensor it launches the route's kernel or raises: no route is taken on
+failure.  ``flash_attention.launches`` counts kernel launches,
+``launches_wgmma`` and ``launches_fma`` each route's.
 """
 from __future__ import annotations
 
@@ -34,13 +50,24 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
-#: Head dims the kernel is compiled for.
+#: Head dims the kernels are compiled for.
 HEAD_DIMS = (16, 32, 64, 128)
+#: Head dims of the ``wgmma`` route (bf16 only).
+WGMMA_HEAD_DIMS = (64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ROUTES = {"fma": 0, "wgmma": 1}
 
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
              + [ctypes.c_int64] * 12
-             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+             + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+
+
+def _route(dtype: torch.dtype, hd: int) -> str:
+    """The kernel a CUDA call takes: ``"wgmma"`` for bf16 at hd 64 and
+    128, ``"fma"`` otherwise."""
+    if dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS:
+        return "wgmma"
+    return "fma"
 
 
 def _lib() -> ctypes.CDLL:
@@ -83,6 +110,25 @@ def _check(q, k, v, out) -> None:
             raise ValueError(f"{name}'s head dim must be contiguous")
 
 
+def _check_tma(tensors) -> None:
+    """The ``wgmma`` route's TMA reads q, k, v (and its epilogue writes
+    out in bf16 pairs) through 16-byte aligned bases and strides."""
+    for name, t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}'s base address is not 16-byte aligned")
+        for d in range(3):
+            if t.shape[d] > 1 and (t.stride(d) * t.element_size()) % 16:
+                raise ValueError(f"{name}'s stride {t.stride(d)} along dim "
+                                 f"{d} is not a multiple of 16 bytes")
+
+
+def _strides(t: torch.Tensor) -> list[int]:
+    """(batch, seq, head) element strides; a dim of length 1 is never
+    stepped along, so its stride is replaced by one any route takes."""
+    return [t.stride(d) if t.shape[d] > 1 else t.shape[3]
+            for d in (0, 2, 1)]
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
                     out: torch.Tensor | None = None) -> torch.Tensor:
@@ -102,18 +148,27 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _, kvh, sk, _ = k.shape
     if out.numel() == 0:
         return out
-    strides = []
-    for t in (q, k, v, out):
-        strides += [t.stride(0), t.stride(2), t.stride(1)]
+    route = _route(q.dtype, hd)
+    tensors = (("q", q), ("k", k), ("v", v), ("out", out))
+    if route == "wgmma":
+        _check_tma(tensors)
+    strides = [st for _, t in tensors for st in _strides(t)]
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _lib().flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         b, h, kvh, sq, sk, hd, *strides, hd ** -0.5, int(causal),
-        _DTYPES[q.dtype], stream)
+        _DTYPES[q.dtype], _ROUTES[route], stream)
     if rc != 0:
-        raise RuntimeError(f"flash_attention launch failed: CUDA error {rc}")
+        raise RuntimeError(f"flash_attention launch failed on the {route} "
+                           f"route: CUDA error {rc}")
     flash_attention.launches += 1
+    if route == "wgmma":
+        flash_attention.launches_wgmma += 1
+    else:
+        flash_attention.launches_fma += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_wgmma = 0
+flash_attention.launches_fma = 0

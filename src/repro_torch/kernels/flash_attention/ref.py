@@ -1,9 +1,11 @@
 """Plain-torch version of the flash-attention kernel (mirrors
 :mod:`repro.kernels.flash_attention.ref`, same [B,H,S,hd] layout).
 
-The CPU path runs it in place of the CUDA kernel, and ``chip_smoke.py``
-holds the kernel against it on the card.  The softmax probabilities stay
-in f32 through the P·V product, as in the kernel.
+The CPU path runs it in place of the CUDA kernels, and ``chip_smoke.py``
+holds both of the kernel's routes against it on the card.  The softmax
+probabilities stay in f32 through the P·V product, as in the ``fma``
+route; the ``wgmma`` route (bf16) rounds them to bf16 for the tensor
+cores, within the bf16 tolerances.
 """
 from __future__ import annotations
 

@@ -4,11 +4,13 @@ decode.  The port of :mod:`repro.models.attention`.
 Shapes follow the [batch, seq, heads, head_dim] convention.
 :func:`_sdpa_train` is the flash-attention kernel
 (:func:`repro_torch.kernels.flash_attention.ops.flash_sdpa`): on a CUDA
-tensor it launches the hand-written CUDA kernel, on a CPU tensor it runs
-the kernel's plain version.  Both keep the softmax probabilities in f32
-through the P·V product, like the reference's kernel and its chunked jnp
-twin; the reference's ``naive`` form rounds them to q's dtype first, which
-differs only in bf16.  Decode attention is plain PyTorch, as the reference
+tensor it launches a hand-written CUDA kernel, on a CPU tensor it runs
+the kernel's plain version.  The plain version and the f32 (FMA) kernel
+keep the softmax probabilities in f32 through the P·V product, like the
+reference's kernel and its chunked jnp twin; in bf16 at head dims 64 and
+128 the card's tensor-core (``wgmma``) kernel rounds them to bf16 for the
+product, as the reference's ``naive`` form does, with m, l and the
+accumulator in f32.  Decode attention is plain PyTorch, as the reference
 computes it outside any kernel.
 """
 from __future__ import annotations

@@ -9,8 +9,8 @@ collects it:
 Without a card every test skips.  Tolerances: leaf search exact; flash
 attention 2e-5 in f32 and 3e-2 in bf16 at the reference kernel test's
 shapes (tests/test_kernels.py), 4e-3 absolute plus 1e-2 relative in bf16
-at the models' widths; WKV6 1e-4 in f32 and 0.15 in bf16; the reduced
-models 1e-4 in f32."""
+at the models' widths and on the wgmma route's own cases; WKV6 1e-4 in
+f32 and 0.15 in bf16; the reduced models 1e-4 in f32."""
 import copy
 
 import numpy as np
@@ -18,7 +18,8 @@ import pytest
 import torch
 
 from repro_torch import configs as TC
-from repro_torch.kernels.flash_attention.kernel import flash_attention
+from repro_torch.kernels.flash_attention.kernel import (_route,
+                                                        flash_attention)
 from repro_torch.kernels.flash_attention.ops import flash_sdpa
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.leaf_search.kernel import leaf_search
@@ -81,7 +82,9 @@ def test_leaf_search_kernel_matches_plain_version(b, f):
 # --------------------------------------------------------------------------
 
 # (B, H, KV, S, hd, causal, dtype, atol, rtol): the reference kernel
-# test's shapes, two ragged ones, and the models' widths
+# test's shapes, two ragged ones, the models' widths, then the wgmma
+# route's (bf16 at hd 64 and 128): causal and full, GQA groups 1, 3 and 4,
+# ragged S (77, 300, 4097) and granite-3-8b's full prefill
 FLASH_CASES = [(2, 4, 2, 256, 64, True, "float32", 2e-5, 2e-5),
                (1, 8, 8, 128, 128, False, "float32", 2e-5, 2e-5),
                (2, 2, 1, 512, 32, True, "float32", 2e-5, 2e-5),
@@ -92,7 +95,29 @@ FLASH_CASES = [(2, 4, 2, 256, 64, True, "float32", 2e-5, 2e-5),
                (1, 32, 8, 512, 128, True, "float32", 2e-5, 2e-5),
                (1, 32, 8, 512, 128, True, "bfloat16", 4e-3, 1e-2),
                (1, 9, 3, 300, 64, True, "float32", 2e-5, 2e-5),
-               (1, 9, 3, 300, 64, True, "bfloat16", 4e-3, 1e-2)]
+               (1, 9, 3, 300, 64, True, "bfloat16", 4e-3, 1e-2),
+               (1, 4, 4, 256, 64, False, "bfloat16", 4e-3, 1e-2),
+               (2, 6, 2, 256, 64, True, "bfloat16", 4e-3, 1e-2),
+               (2, 8, 2, 256, 128, True, "bfloat16", 4e-3, 1e-2),
+               (1, 8, 2, 256, 128, False, "bfloat16", 4e-3, 1e-2),
+               (2, 9, 3, 77, 64, True, "bfloat16", 4e-3, 1e-2),
+               (1, 4, 1, 300, 128, False, "bfloat16", 4e-3, 1e-2),
+               (1, 2, 2, 4097, 128, True, "bfloat16", 4e-3, 1e-2),
+               (1, 3, 1, 4097, 64, False, "bfloat16", 4e-3, 1e-2),
+               (4, 32, 8, 4096, 128, True, "bfloat16", 4e-3, 1e-2)]
+
+
+def route_counts():
+    return (flash_attention.launches, flash_attention.launches_wgmma,
+            flash_attention.launches_fma)
+
+
+def assert_launched(before, n, route):
+    """The total and ``route``'s count moved by ``n``, the other not."""
+    total, wgmma, fma = route_counts()
+    assert total == before[0] + n
+    assert wgmma == before[1] + (n if route == "wgmma" else 0)
+    assert fma == before[2] + (n if route == "fma" else 0)
 
 
 @pytest.mark.parametrize("b,h,kv,s,hd,causal,dtype,atol,rtol", FLASH_CASES)
@@ -102,18 +127,39 @@ def test_flash_attention_kernel_matches_plain_version(b, h, kv, s, hd, causal,
     q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
                .to(getattr(torch, dtype)).cuda()
                for shape in ((b, h, s, hd), (b, kv, s, hd), (b, kv, s, hd)))
-    n0 = flash_attention.launches
+    route = _route(q.dtype, hd)
+    n0 = route_counts()
     got = flash_attention(q, k, v, causal=causal)
-    want = attention_ref(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    assert flash_attention.launches == n0 + 1
+    assert_launched(n0, 1, route)
+    want = attention_ref(q, k, v, causal=causal)
     assert got.dtype == q.dtype
     close(got, want, atol, rtol)
+    del want
     # the model layout, through strides
     qm, km, vm = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     got_m = flash_sdpa(qm, km, vm, causal=causal)
-    assert flash_attention.launches == n0 + 2
+    assert_launched(n0, 2, route)
     assert torch.equal(got_m.transpose(1, 2), got)
+
+
+@pytest.mark.parametrize("sq,sk,causal", [(128, 300, False),
+                                          (300, 77, False),
+                                          (77, 4097, False),
+                                          (300, 130, True)])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_attention_wgmma_route_sq_ne_sk(sq, sk, causal, hd):
+    """Queries and keys of different lengths on the wgmma route (causal
+    aligned as the reference's mask: row i sees keys j <= i)."""
+    rng = np.random.default_rng(sq * sk + hd)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+               .to(torch.bfloat16).cuda()
+               for shape in ((2, 6, sq, hd), (2, 2, sk, hd), (2, 2, sk, hd)))
+    n0 = route_counts()
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert_launched(n0, 1, "wgmma")
+    close(got, attention_ref(q, k, v, causal=causal), 4e-3, 1e-2)
 
 
 # --------------------------------------------------------------------------

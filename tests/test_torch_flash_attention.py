@@ -14,7 +14,10 @@ import torch
 from repro.kernels.flash_attention.kernel import flash_attention as j_flash
 from repro.kernels.flash_attention.ops import flash_sdpa as j_flash_sdpa
 from repro.kernels.flash_attention.ref import attention_ref as j_ref
-from repro_torch.kernels.flash_attention.kernel import flash_attention
+from repro_torch.kernels.flash_attention.kernel import (HEAD_DIMS,
+                                                        _check_tma, _route,
+                                                        _strides,
+                                                        flash_attention)
 from repro_torch.kernels.flash_attention.ops import flash_sdpa
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
@@ -98,3 +101,48 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(break_arg):
     with pytest.raises((TypeError, ValueError)):
         flash_attention(q, k, v, out=out)
     assert flash_attention.launches == n0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+def test_route_depends_on_dtype_and_head_dim_alone(dtype, hd):
+    """bf16 at hd 64 and 128 takes the wgmma kernel; f32 at every head dim
+    (it must stay within 2e-5, which TF32 tensor cores cannot give) and
+    bf16 at 16 and 32 take the FMA kernel."""
+    want = "wgmma" if dtype == "bfloat16" and hd in (64, 128) else "fma"
+    assert _route(getattr(torch, dtype), hd) == want
+
+
+def test_wrapper_on_cpu_counts_no_launch():
+    """CPU tensors run the plain version on either route's inputs."""
+    before = (flash_attention.launches, flash_attention.launches_wgmma,
+              flash_attention.launches_fma)
+    for dtype in ("bfloat16", "float32"):
+        _, tx = make_inputs(5, 1, 4, 2, 64, 64, dtype)
+        flash_attention(*tx)
+    assert (flash_attention.launches, flash_attention.launches_wgmma,
+            flash_attention.launches_fma) == before
+
+
+def test_tma_checks_refuse_what_the_wgmma_route_cannot_read():
+    """The wgmma route's TMA needs 16-byte aligned bases and strides: the
+    model layout passes, an odd sequence stride or a shifted base raises
+    (before any launch, so nothing falls back)."""
+    _, (q, k, v) = make_inputs(0, 2, 4, 2, 64, 64, "bfloat16")
+    model = q.transpose(1, 2).contiguous().transpose(1, 2)
+    _check_tma([("q", q), ("k", k), ("v", v), ("q_model", model)])
+    wide = torch.zeros((2, 4, 64, 65), dtype=torch.bfloat16)[..., :64]
+    with pytest.raises(ValueError, match="stride"):
+        _check_tma([("q", wide)])
+    shifted = torch.zeros(q.numel() + 1, dtype=torch.bfloat16)[1:]
+    with pytest.raises(ValueError, match="aligned"):
+        _check_tma([("q", shifted.view(q.shape))])
+
+
+def test_strides_of_length_one_dims_are_replaced():
+    """A dim of length 1 is never stepped along; its stride becomes one
+    that TMA takes, the others are passed as they are."""
+    t = torch.zeros((1, 4, 1, 64))[:, :, :, :]
+    assert _strides(t) == [64, 64, 64]
+    u = torch.zeros((2, 3, 5, 64)).transpose(1, 2)
+    assert _strides(u) == [u.stride(0), u.stride(2), u.stride(1)]

@@ -19,7 +19,8 @@ Phases, in order; any failure raises and exits non-zero:
    ragged shape and the main paths' shapes (flash attention on both of its
    routes: ``wgmma`` for bf16 at hd 64 and 128, ``fma`` otherwise), and
    time kernel, plain version and (for attention) PyTorch's SDPA on the
-   device and per eager call;
+   device and per eager call (WKV6 in the kernel layout and in the model
+   layout the forward passes, which must give the same bits);
 4. parity  — ``run_systems`` for ``sherman`` and ``fg+`` on the quick
    YCSB-A spec on the card and on the CPU: the RunResults must be equal;
 5. deploy  — the paper-scale index (1B records, 80% full leaves, height 8)
@@ -31,10 +32,10 @@ Phases, in order; any failure raises and exits non-zero:
 7. granite — granite-3-8b at full width in bf16: prefill of 4 × 4096
    tokens (its 40 flash launches all on the ``wgmma`` route), 64 decode
    steps, and prefill + decode == forward at 512 tokens;
-8. rwkv    — rwkv6-1.6b at full width: forward and loss over 4 × 4096
-   tokens in bf16; step-by-step decode == forward on the bf16 model's
-   first two layers at 64 tokens, and on the whole model in f32 at 256
-   tokens (see ``RWKV_TOL``).
+8. rwkv    — rwkv6-1.6b at full width: forward (the median of 3 after a
+   cold one) and loss over 4 × 4096 tokens in bf16; step-by-step decode ==
+   forward on the bf16 model's first two layers at 64 tokens, and on the
+   whole model in f32 at 256 tokens (see ``RWKV_TOL``).
 
 The line before the last is a JSON object with the kernels' numbers; the
 last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -105,11 +106,14 @@ FLASH_TIMED = [(4, 9, 3, 4096, 64, "bfloat16"),
                (4, 32, 8, 4096, 128, "bfloat16"),
                (4, 32, 8, 4096, 128, "float32")]
 # WKV6 (B, H, T, N, dtype): the reference kernel test's shapes, two ragged
-# ones, and rwkv6-1.6b's forward over 4 x 4096 tokens (f32 r/k/v/w, the
-# main path's).
+# ones, the kernel's chunk boundaries (1, 31, 32, 33 and 67 steps, for
+# its chunks of 32) in both dtypes, and rwkv6-1.6b's forward over
+# 4 x 4096 tokens (f32 r/k/v/w, the main path's).
 WKV_SHAPES = [(2, 3, 256, 32, "float32"), (1, 2, 128, 64, "float32"),
               (2, 1, 512, 16, "float32"), (1, 2, 128, 64, "bfloat16"),
-              (2, 3, 77, 32, "float32"), (1, 2, 33, 64, "bfloat16"),
+              (2, 3, 77, 32, "float32"), (1, 2, 33, 64, "bfloat16")] + [
+              (2, 32, t, 64, dt) for t in (1, 31, 32, 33, 67)
+              for dt in ("float32", "bfloat16")] + [
               (4, 32, 4096, 64, "float32")]
 WKV_TOL = {"float32": 1e-4, "bfloat16": 0.15}
 # Full-width checks of one serving path against another, absolute only.
@@ -483,7 +487,7 @@ def phase_flash(torch, flash_attention, attention_ref, route_of):
     return numbers
 
 
-def phase_wkv(torch, wkv6, wkv6_ref):
+def phase_wkv(torch, wkv6, wkv6_ref, wkv6_seq):
     gen = torch.Generator(device="cuda").manual_seed(12)
     max_err = 0.0
     torch.cuda.reset_peak_memory_stats()
@@ -502,8 +506,20 @@ def phase_wkv(torch, wkv6, wkv6_ref):
         max_err = max(max_err, err)
         log(f"kernel  wkv6 B={b} H={h} T={t} N={n} {dt}: max abs error "
             f"{err} (tol {WKV_TOL[dt]})")
+    # the main path's shape: the model layout [B,T,H,N], which the forward
+    # passes to wkv6_seq as transposed views, gives the kernel layout's
+    # bits, and so does a second launch
+    model = [x.transpose(1, 2).contiguous() for x in (r, k, v, w)]
+    got_model = wkv6_seq(*model, u).transpose(1, 2)
+    again = wkv6(r, k, v, w, u)
+    torch.cuda.synchronize()
+    if not (torch.equal(got_model, got) and torch.equal(again, got)):
+        raise AssertionError("wkv6: the model layout or a second launch "
+                             "changed the bits")
     kernel = lambda: wkv6(r, k, v, w, u)
     ms = device_ms(torch, kernel, reps=20, samples=5)
+    ms_model = device_ms(torch, lambda: wkv6_seq(*model, u), reps=20,
+                         samples=5)
     call_ms = host_ms(torch, kernel, reps=20, samples=5)
     plain_ms = host_ms(torch, lambda: wkv6_ref(r, k, v, w, u), reps=1,
                        samples=3)
@@ -515,13 +531,16 @@ def phase_wkv(torch, wkv6, wkv6_ref):
     n_ops = 4 * n * n * b * h * t
     bytes_ms = n_bytes / HBM_BYTES_S * 1e3
     ops_ms = n_ops / SCALAR_OPS_S * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
     log(f"kernel  wkv6 B={b} H={h} T={t} N={n} f32: device {ms:.6f} ms "
-        f"(CUDA graph of 20 calls); per eager call {call_ms:.6f} ms; plain "
-        f"{plain_ms:.6f} ms per eager call; bound "
-        f"{max(ops_ms, bytes_ms):.6f} ms ({n_bytes} bytes {bytes_ms:.6f} "
-        f"ms, {n_ops} flops at f32 peak {ops_ms:.6f} ms); {_peak(torch)}")
-    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=max(ops_ms, bytes_ms),
+        f"kernel layout, {ms_model:.6f} ms model layout (CUDA graph of 20 "
+        f"calls; model layout == kernel layout == a second launch, bit for "
+        f"bit); per eager call {call_ms:.6f} ms; plain {plain_ms:.6f} ms "
+        f"per eager call; bound {bound_ms:.6f} ms ({n_bytes} bytes "
+        f"{bytes_ms:.6f} ms, {n_ops} flops at f32 peak {ops_ms:.6f} ms); "
+        f"{ms / bound_ms:.3f}x the bound; {_peak(torch)}")
+    return dict(max_abs_err=max_err, ms=ms, ms_model_layout=ms_model,
+                plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                 host_ms=call_ms, library_ms=None)
 
@@ -688,22 +707,37 @@ def phase_rwkv(torch, get, registry, wkv6):
         f"initialised on the card in {time.perf_counter() - t0:.3f} s")
     b, s = 4, 4096
     batch = registry.make_batch(cfg, b, s, gen)
-    wkv6.launches = 0
+    # one cold forward, then the median of 3; the launches are the first
+    # timed forward's
     t0 = time.perf_counter()
-    logits = api.forward(model, batch)
+    api.forward(model, batch)
     torch.cuda.synchronize()
-    fwd_s = time.perf_counter() - t0
-    launches = wkv6.launches
+    cold_s = time.perf_counter() - t0
+    times = []
+    wkv6.launches = 0
+    for rep in range(3):
+        logits = None                   # free the last forward's
+        t0 = time.perf_counter()
+        logits = api.forward(model, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if rep == 0:
+            launches = wkv6.launches
+    fwd_s = float(np.median(times))
+    total = wkv6.launches
     t0 = time.perf_counter()
     loss = float(api.loss(model, batch))
     loss_s = time.perf_counter() - t0
-    if launches != cfg.n_layers or not bool(torch.isfinite(logits).all()) \
+    if launches != cfg.n_layers or total != 3 * cfg.n_layers \
+            or not bool(torch.isfinite(logits).all()) \
             or not math.isfinite(loss):
-        raise AssertionError(f"rwkv forward: launches {launches}, loss "
-                             f"{loss}")
-    log(f"rwkv    forward {b} x {s} tokens in {fwd_s:.3f} s = "
-        f"{b * s / fwd_s:.1f} tokens/s; wkv6 launches {launches}; loss "
-        f"{loss} in {loss_s:.3f} s; logits finite; {_peak(torch)}")
+        raise AssertionError(f"rwkv forward: launches {launches} (3 "
+                             f"forwards: {total}), loss {loss}")
+    log(f"rwkv    forward {b} x {s} tokens in {fwd_s:.3f} s (median of 3 "
+        f"after a cold one of {cold_s:.3f} s; "
+        f"{', '.join(f'{x:.3f}' for x in times)}) = {b * s / fwd_s:.1f} "
+        f"tokens/s; wkv6 launches {launches} a forward; loss {loss} in "
+        f"{loss_s:.3f} s; logits finite; {_peak(torch)}")
     del logits
     # step-by-step decode == forward in bf16 on the first two layers
     # (see RWKV_TOL)
@@ -752,6 +786,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels.leaf_search.kernel import leaf_search
     from repro_torch.kernels.leaf_search.ref import leaf_search_ref
     from repro_torch.kernels.rwkv_scan.kernel import wkv6
+    from repro_torch.kernels.rwkv_scan.ops import wkv6_seq
     from repro_torch.kernels.rwkv_scan.ref import wkv6_ref
     from repro_torch.models import registry
     from repro_torch.workloads import engine, get_preset
@@ -779,7 +814,7 @@ def main(argv=None) -> int:
                                            leaf_search_ref),
                "flash_attention": phase_flash(torch, flash_attention,
                                               attention_ref, _route),
-               "wkv6": phase_wkv(torch, wkv6, wkv6_ref)}
+               "wkv6": phase_wkv(torch, wkv6, wkv6_ref, wkv6_seq)}
     torch.cuda.empty_cache()
 
     # 4. the GPU run agrees with the CPU run

@@ -47,7 +47,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, check_tma
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 #: Head dims the kernels are compiled for.
@@ -110,18 +110,6 @@ def _check(q, k, v, out) -> None:
             raise ValueError(f"{name}'s head dim must be contiguous")
 
 
-def _check_tma(tensors) -> None:
-    """The ``wgmma`` route's TMA reads q, k, v (and its epilogue writes
-    out in bf16 pairs) through 16-byte aligned bases and strides."""
-    for name, t in tensors:
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name}'s base address is not 16-byte aligned")
-        for d in range(3):
-            if t.shape[d] > 1 and (t.stride(d) * t.element_size()) % 16:
-                raise ValueError(f"{name}'s stride {t.stride(d)} along dim "
-                                 f"{d} is not a multiple of 16 bytes")
-
-
 def _strides(t: torch.Tensor) -> list[int]:
     """(batch, seq, head) element strides; a dim of length 1 is never
     stepped along, so its stride is replaced by one any route takes."""
@@ -151,7 +139,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     route = _route(q.dtype, hd)
     tensors = (("q", q), ("k", k), ("v", v), ("out", out))
     if route == "wgmma":
-        _check_tma(tensors)
+        check_tma(tensors)
     strides = [st for _, t in tensors for st in _strides(t)]
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _lib().flash_attention_launch(

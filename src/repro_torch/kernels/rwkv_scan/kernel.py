@@ -10,13 +10,20 @@ ctypes.
   f32: 671 MB, 0.200 ms at 3.35 TB/s for RWKV6-1.6B's B=4, T=4096, H=32,
   N=64) against about 4·N² flops per token and head (8.6e9 flops, 0.128 ms
   at the H100 SXM's 67 TFLOP/s f32 rate).
-* **Design:** simple and right first (``src/repro_torch/csrc/wkv6.cu``): one
-  block of N threads per (batch, head) stepping over T, thread m holding
-  column m of the state in registers, r/k/w of each step staged in
-  double-buffered shared memory and the next step prefetched.  With only
-  B·H blocks it is latency-bound; a chunked formulation is a later design.
-  Tensors are addressed through strides, so the model layout [B,T,H,N]
-  runs without a copy.
+* **Design** (``src/repro_torch/csrc/wkv6.cu``): one block per (batch,
+  head) in two roles.  Compute warps split the state into register tiles
+  (8 rows × 4 columns at N = 64: 128 threads, a warp on each of an SM's
+  four schedulers at RWKV6-1.6B's shape) and store each step's partial
+  output, sum over their rows of r_t S_{t-1}; output warps, a chunk
+  behind, fold u's term into one scalar a step (o_t = r_t S_{t-1} +
+  v_t c_t with c_t = Σ r_t u k_t), sum the row groups' partials in a
+  fixed order and store each chunk's rows of o as 16-byte stores.  Time
+  runs in chunks of :data:`CHUNK` steps that one thread stages with TMA
+  into a ring of shared-memory stages on mbarriers, so the step loop
+  reads only shared memory and registers and takes no barrier.  Tensors
+  are addressed through strides, so the model layout [B,T,H,N] runs
+  without a copy; TMA needs every stride of a dim longer than 1, and every
+  base, 16-byte aligned (the output's too, for its 16-byte stores).
 
 For a CPU tensor the wrapper runs the plain version
 (:func:`repro_torch.kernels.rwkv_scan.ref.wkv6_ref`); for a CUDA tensor it
@@ -28,11 +35,13 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, check_tma
 from repro_torch.kernels.rwkv_scan.ref import wkv6_ref
 
 #: State widths the kernel is compiled for.
 HEAD_SIZES = (16, 32, 64)
+#: Time steps a shared-memory stage holds (``kChunk`` in ``csrc/wkv6.cu``).
+CHUNK = 32
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
@@ -79,6 +88,12 @@ def _check(r, k, v, w, u, out) -> None:
         raise ValueError("u must be contiguous")
 
 
+def _strides(x: torch.Tensor) -> list[int]:
+    """(batch, head, time) element strides; a dim of length 1 is never
+    stepped along, so its stride is replaced by one TMA takes."""
+    return [x.stride(d) if x.shape[d] > 1 else x.shape[3] for d in range(3)]
+
+
 def wkv6(r, k, v, w, u, *, out: torch.Tensor | None = None) -> torch.Tensor:
     """r/k/v/w: [B, H, T, N] (shared strides, N contiguous); u: [H, N]
     -> o [B, H, T, N] float32, written into ``out`` when given."""
@@ -94,12 +109,12 @@ def wkv6(r, k, v, w, u, *, out: torch.Tensor | None = None) -> torch.Tensor:
     b, h, t, n = r.shape
     if out.numel() == 0:
         return out
+    check_tma((("r", r), ("k", k), ("v", v), ("w", w), ("out", out)))
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _lib().wkv6_launch(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
-        out.data_ptr(), b, h, t, n, r.stride(0), r.stride(1), r.stride(2),
-        out.stride(0), out.stride(1), out.stride(2), _DTYPES[r.dtype],
-        stream)
+        out.data_ptr(), b, h, t, n, *_strides(r), *_strides(out),
+        _DTYPES[r.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"wkv6 launch failed: CUDA error {rc}")
     wkv6.launches += 1

@@ -51,5 +51,12 @@ def test_library_path_changes_with_the_flags(csrc, monkeypatch):
 
 
 def test_the_flash_library_covers_its_header():
+    """The wgmma header and, through it, the TMA header."""
     names = [p.name for p in build._sources("flash_attention")]
-    assert names == ["flash_attention.cu", "flash_attention_wgmma.cuh"]
+    assert names == ["flash_attention.cu", "flash_attention_wgmma.cuh",
+                     "tma.cuh"]
+
+
+def test_the_wkv6_library_covers_the_tma_header():
+    names = [p.name for p in build._sources("wkv6")]
+    assert names == ["wkv6.cu", "tma.cuh"]

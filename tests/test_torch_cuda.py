@@ -24,7 +24,7 @@ from repro_torch.kernels.flash_attention.ops import flash_sdpa
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.leaf_search.kernel import leaf_search
 from repro_torch.kernels.leaf_search.ref import leaf_search_ref
-from repro_torch.kernels.rwkv_scan.kernel import wkv6
+from repro_torch.kernels.rwkv_scan.kernel import CHUNK, wkv6
 from repro_torch.kernels.rwkv_scan.ops import wkv6_seq
 from repro_torch.kernels.rwkv_scan.ref import wkv6_ref
 from repro_torch.models import registry as TREG
@@ -167,22 +167,31 @@ def test_flash_attention_wgmma_route_sq_ne_sk(sq, sk, causal, hd):
 # --------------------------------------------------------------------------
 
 WKV_TOL = {"float32": 1e-4, "bfloat16": 0.15}
+# the kernel's chunk boundaries: one step, a chunk less one, a chunk, a
+# chunk and one, two chunks and a ragged tail
+CHUNK_LENGTHS = (1, CHUNK - 1, CHUNK, CHUNK + 1, 2 * CHUNK + 3)
+
+
+def wkv_inputs(seed, b, h, t, n, dtype):
+    """r/k/v normal, w in [0.45, 0.95), u normal: the reference kernel
+    test's generator, [B,H,T,N] on the card."""
+    rng = np.random.default_rng(seed)
+    host = [rng.standard_normal((b, h, t, n)) for _ in range(3)]
+    host.append(rng.random((b, h, t, n)) * 0.5 + 0.45)
+    host.append(rng.standard_normal((h, n)))
+    return [torch.from_numpy(a.astype(np.float32)).to(getattr(torch, dtype))
+            .cuda() for a in host]
 
 
 @pytest.mark.parametrize("b,h,t,n,dtype", [
     (2, 3, 256, 32, "float32"), (1, 2, 128, 64, "float32"),
     (2, 1, 512, 16, "float32"), (1, 2, 128, 64, "bfloat16"),
     (2, 3, 77, 32, "float32"), (1, 2, 33, 64, "bfloat16"),
-    (1, 32, 300, 64, "float32")])                  # rwkv6-1.6b widths
+    (1, 32, 300, 64, "float32")]                   # rwkv6-1.6b widths
+    + [(1, 6, t, 64, dtype) for t in CHUNK_LENGTHS
+       for dtype in ("float32", "bfloat16")])
 def test_wkv6_kernel_matches_plain_version(b, h, t, n, dtype):
-    """r/k/v normal, w in [0.45, 0.95), u normal: the reference kernel
-    test's generator."""
-    rng = np.random.default_rng(b * t + n)
-    host = [rng.standard_normal((b, h, t, n)) for _ in range(3)]
-    host.append(rng.random((b, h, t, n)) * 0.5 + 0.45)
-    host.append(rng.standard_normal((h, n)))
-    args = [torch.from_numpy(a.astype(np.float32)).to(getattr(torch, dtype))
-            .cuda() for a in host]
+    args = wkv_inputs(b * t + n, b, h, t, n, dtype)
     n0 = wkv6.launches
     got = wkv6(*args)
     want = wkv6_ref(*args)
@@ -195,6 +204,38 @@ def test_wkv6_kernel_matches_plain_version(b, h, t, n, dtype):
                      args[4])
     assert wkv6.launches == n0 + 2
     assert torch.equal(got_m.transpose(1, 2), got)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wkv6_model_layout_views(dtype):
+    """rwkv6-1.6b's width in the model layout: [B,T,H,N] tensors passed as
+    transposed views (time stride H*N), as the forward does, against the
+    plain version, and the same bits as the kernel layout."""
+    b, t, h, n = 2, 2 * CHUNK + 5, 32, 64
+    # [B,T,H,N] buffers (the generator's second and third dims swapped),
+    # and u [H,N]
+    r, k, v, w, u = wkv_inputs(t, b, t, h, n, dtype)
+    u = u[:h]
+    views = [x.transpose(1, 2) for x in (r, k, v, w)]
+    assert views[0].stride(2) == h * n and not views[0].is_contiguous()
+    n0 = wkv6.launches
+    got = wkv6(*views, u)
+    got_seq = wkv6_seq(r, k, v, w, u)
+    torch.cuda.synchronize()
+    assert wkv6.launches == n0 + 2
+    close(got, wkv6_ref(*views, u), WKV_TOL[dtype], WKV_TOL[dtype])
+    assert torch.equal(got_seq.transpose(1, 2), got)
+    assert torch.equal(wkv6(*(x.contiguous() for x in views), u), got)
+
+
+def test_wkv6_two_launches_give_the_same_bits():
+    """The row groups' shares are summed in a fixed order, with no
+    atomics."""
+    args = wkv_inputs(3, 2, 32, 4 * CHUNK + 7, 64, "float32")
+    first = wkv6(*args)
+    second = wkv6(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 # --------------------------------------------------------------------------

@@ -14,8 +14,8 @@ import torch
 from repro.kernels.flash_attention.kernel import flash_attention as j_flash
 from repro.kernels.flash_attention.ops import flash_sdpa as j_flash_sdpa
 from repro.kernels.flash_attention.ref import attention_ref as j_ref
-from repro_torch.kernels.flash_attention.kernel import (HEAD_DIMS,
-                                                        _check_tma, _route,
+from repro_torch.kernels import check_tma
+from repro_torch.kernels.flash_attention.kernel import (HEAD_DIMS, _route,
                                                         _strides,
                                                         flash_attention)
 from repro_torch.kernels.flash_attention.ops import flash_sdpa
@@ -130,13 +130,13 @@ def test_tma_checks_refuse_what_the_wgmma_route_cannot_read():
     (before any launch, so nothing falls back)."""
     _, (q, k, v) = make_inputs(0, 2, 4, 2, 64, 64, "bfloat16")
     model = q.transpose(1, 2).contiguous().transpose(1, 2)
-    _check_tma([("q", q), ("k", k), ("v", v), ("q_model", model)])
+    check_tma([("q", q), ("k", k), ("v", v), ("q_model", model)])
     wide = torch.zeros((2, 4, 64, 65), dtype=torch.bfloat16)[..., :64]
     with pytest.raises(ValueError, match="stride"):
-        _check_tma([("q", wide)])
+        check_tma([("q", wide)])
     shifted = torch.zeros(q.numel() + 1, dtype=torch.bfloat16)[1:]
     with pytest.raises(ValueError, match="aligned"):
-        _check_tma([("q", shifted.view(q.shape))])
+        check_tma([("q", shifted.view(q.shape))])
 
 
 def test_strides_of_length_one_dims_are_replaced():

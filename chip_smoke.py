@@ -14,18 +14,25 @@ Phases, in order; any failure raises and exits non-zero:
    count of ``HGMMA`` (wgmma) instructions in the flash library's SASS
    (raise if 0);
 3. kernel  — hold each CUDA kernel against its plain version on the card
-   (leaf search bit for bit; flash attention and WKV6 within the reference
-   kernel test's tolerances) at the reference kernel test's shapes, a
-   ragged shape and the main paths' shapes (flash attention on both of its
+   (leaf search bit for bit, both entries: gathered rows, and the pool
+   with leaf ids; flash attention and WKV6 within the reference kernel
+   test's tolerances) at the reference kernel test's shapes, a ragged
+   shape and the main paths' shapes (flash attention on both of its
    routes: ``wgmma`` for bf16 at hd 64 and 128, ``fma`` otherwise), and
    time kernel, plain version and (for attention) PyTorch's SDPA on the
    device and per eager call (WKV6 in the kernel layout and in the model
-   layout the forward passes, which must give the same bits);
+   layout the forward passes, which must give the same bits; the leaf
+   search's ``lookup_leaves`` against the gather composition it replaced
+   (gathers, casts and the gathered-row entry), on fresh random rows of a 5.5 GB
+   pool, with the CUDA kernels each launches counted by the profiler);
 4. parity  — ``run_systems`` for ``sherman`` and ``fg+`` on the quick
    YCSB-A spec on the card and on the CPU: the RunResults must be equal;
 5. deploy  — the paper-scale index (1B records, 80% full leaves, height 8)
    under the write-intensive mix: bulkload, run, netsim metrics, kernel
-   launches, peak memory, and every acknowledged write read back;
+   launches, the probe's batch sizes and launches per probe, peak memory;
+   then one more wave timed by layer on the host clock and one under
+   ``torch.profiler`` (device busy and idle share, device time by layer);
+   and every acknowledged write read back;
 6. lm-parity — reduced smollm-135m, granite-3-8b and rwkv6-1.6b in f32:
    the same weights on the card (kernels) and on the CPU (plain
    versions) give the same prefill, decode and forward logits;
@@ -69,6 +76,14 @@ BF16_TENSOR_OPS_S = 989e12
 KERNEL_SHAPES = [(256, 8), (512, 16), (128, 32), (256, 64),   # kernel test
                  (512, 16), (1024, 16), (1000, 16)]           # main path
 MAIN_PATH_SHAPE = (512, 16)     # lookup bucket at batch 1024, 50% reads
+# the pool entry's checks (F, B): the kernel test's fanouts, the main
+# path's, a ragged batch and one lane, on 4096-row torn pools
+POOL_SHAPES = [(8, 256), (16, 512), (32, 128), (64, 256), (16, 300),
+               (16, 1)]
+# its timing: a synthetic pool of 2^25 rows (5.5 GB at F = 16, far beyond
+# the 50 MB L2), a CUDA graph of 100 calls, each on fresh random rows
+LEAF_POOL_ROWS = 1 << 25
+LEAF_REPS, LEAF_SAMPLES = 100, 9
 
 # flash attention (B, H, KV, S, hd, causal, dtype, atol, rtol): the
 # reference kernel test's shapes at its tolerances (2e-5 in f32, 3e-2 in
@@ -252,12 +267,117 @@ def phase_build_report(names, libs, logs) -> None:
                              "instruction")
 
 
-def phase_kernel(torch, leaf_search, leaf_search_ref):
+def leaf_pool(torch, n: int, f: int):
+    """A synthetic pool of ``n`` rows whose every field is a function of
+    its row and slot, so a query for row r is made without reading the
+    pool: keys[r, s] = r·F + s, vals = keys + 1; torn where keys % 97 == 0
+    (rev = fev + 1), r % 89 == 0 (rnv = fnv + 1) and r % 101 == 0 (free).
+    Returns the pool entry's arrays: keys, vals, fev, rev, fnv, rnv,
+    free_bit."""
+    i32 = torch.int32
+    keys = torch.arange(n * f, dtype=i32, device="cuda").view(n, f)
+    fev = (keys & 3).to(torch.uint8)
+    rev = fev + (keys % 97 == 0).to(torch.uint8)
+    row = torch.arange(n, dtype=i32, device="cuda")
+    fnv = (row & 15).to(torch.uint8)
+    rnv = fnv + (row % 89 == 0).to(torch.uint8)
+    return keys, keys + 1, fev, rev, fnv, rnv, row % 101 == 0
+
+
+def pool_state(pool):
+    """The :class:`TreeState` fields that ``lookup_leaves`` reads, named,
+    from a :func:`leaf_pool`."""
+    return argparse.Namespace(**dict(zip(
+        ("keys", "vals", "fev", "rev", "fnv", "rnv", "free_bit"), pool)))
+
+
+def fill_leaf_queries(torch, leaf, q, n: int, f: int, gen) -> None:
+    """Fresh random leaf ids of a :func:`leaf_pool`, in place, and queries
+    that hit a random slot of their row for about half the lanes (else
+    -5, in no row)."""
+    leaf.random_(0, n, generator=gen)
+    slot = torch.randint(0, 2 * f, leaf.shape, generator=gen,
+                         device="cuda", dtype=torch.int32)
+    torch.where(slot < f, leaf * f + slot, torch.full_like(leaf, -5), out=q)
+
+
+def fresh_rows_ms(torch, fn, reps: int, samples: int, refill=None) -> float:
+    """Device time per call: ``fn(k)`` for k < ``reps`` captured in one
+    CUDA graph and replayed; ``refill()`` (fresh leaf ids, so every row is
+    a cold DRAM read) runs before each replay, outside the timed span."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for k in range(3):
+            fn(k)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for k in range(reps):
+            fn(k)
+    graph.replay()
+    times = []
+    for _ in range(samples):
+        if refill is not None:
+            refill()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return float(np.median(times))
+
+
+def kernels_per_call(torch, fn, calls: int = 10) -> float:
+    """CUDA kernels that ``fn`` launches per call, from ``torch.profiler``
+    (memory copies and sets not counted)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    n = sum(e.count for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and not e.key.startswith(("Memcpy", "Memset")))
+    return n / calls
+
+
+def gathered_lookup_leaves(torch, leaf_search, pool, leaf, q):
+    """The gather composition ``lookup_leaves`` was before the pool entry:
+    the pool rows gathered and cast by PyTorch (7 gathers, 3 casts), then
+    the gathered-row entry."""
+    keys, vals, fev, rev, fnv, rnv, free = pool
+    i32 = torch.int32
+    return leaf_search(q.to(i32).contiguous(), keys[leaf], vals[leaf],
+                       fev[leaf], rev[leaf], fnv[leaf].to(i32),
+                       rnv[leaf].to(i32), free[leaf].to(i32))
+
+
+def _assert_same_bits(torch, got, want, what: str) -> int:
+    """Raise unless each output has the plain version's dtype and bits;
+    return the max abs difference (0)."""
+    err = 0
+    for g, w in zip(got, want):
+        if g.dtype != w.dtype or not torch.equal(g, w):
+            raise AssertionError(f"{what}: kernel != plain version")
+        if g.numel():
+            diff = (g.to(torch.int64) - w.to(torch.int64)).abs().max()
+            err = max(err, int(diff))
+    return err
+
+
+def phase_kernel(torch, leaf_search, leaf_search_ref, leaf_search_pool,
+                 leaf_search_pool_ref, lookup_leaves):
     torch.cuda.reset_peak_memory_stats()
     rng = np.random.default_rng(7)
     dev = torch.device("cuda")
     max_err = 0
-    timed = timed_host = None
     for b, f in KERNEL_SHAPES:
         host = kernel_inputs(rng, b, f)
         for ver in (torch.int32, torch.uint8):
@@ -266,41 +386,251 @@ def phase_kernel(torch, leaf_search, leaf_search_ref):
             got = leaf_search(*args)
             want = leaf_search_ref(*args)
             torch.cuda.synchronize()
-            for g, w in zip(got, want):
-                if g.dtype != w.dtype or not torch.equal(g, w):
-                    raise AssertionError(f"leaf_search != plain at B={b} "
-                                         f"F={f} versions {ver}")
-                err = (g.to(torch.int64) - w.to(torch.int64)).abs().max()
-                max_err = max(max_err, int(err))
-            if (b, f) == MAIN_PATH_SHAPE and ver == torch.uint8:
-                timed, timed_host = args, host
+            max_err = max(max_err, _assert_same_bits(
+                torch, got, want, f"leaf_search B={b} F={f} versions {ver}"))
         log(f"kernel  B={b:5d} F={f:3d}: equal to plain (int32 and uint8 "
             f"versions)")
+    # the pool entry, on torn pools: leaf ids in range, negative, past
+    # the pool (wrapped, then clamped, as JAX's gather does)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for f, b in POOL_SHAPES:
+        n = 4096
+        pool = leaf_pool(torch, n, f)
+        leaf = torch.empty((b,), dtype=torch.int32, device=dev)
+        q = torch.empty_like(leaf)
+        fill_leaf_queries(torch, leaf, q, n, f, gen)
+        leaf[1::7] -= n + 3
+        leaf[2::11] += n
+        n0 = leaf_search.launches
+        got = leaf_search_pool(q, leaf, *pool)
+        want = leaf_search_pool_ref(q, leaf, *pool)
+        torch.cuda.synchronize()
+        if leaf_search.launches != n0 + 1:
+            raise AssertionError("leaf_search_pool launched "
+                                 f"{leaf_search.launches - n0} kernels")
+        max_err = max(max_err, _assert_same_bits(
+            torch, got, want, f"leaf_search_pool F={f} B={b}"))
+        log(f"kernel  pool entry F={f:3d} B={b:4d}: equal to plain "
+            f"({int(want[1].sum())} found, {int((~want[2]).sum())} "
+            f"inconsistent, {int((leaf < 0).sum())} negative and "
+            f"{int((leaf >= n).sum())} past-the-pool ids)")
+        del pool
+
+    # lookup_leaves at the main path's shape on cold rows of a big pool
     b, f = MAIN_PATH_SHAPE
-    ms = device_ms(torch, lambda: leaf_search(*timed))
-    plain_ms = device_ms(torch, lambda: leaf_search_ref(*timed))
-    call_ms = host_ms(torch, lambda: leaf_search(*timed))
-    plain_call_ms = host_ms(torch, lambda: leaf_search_ref(*timed))
-    # What the function must move (uint8 versions): every lane reads its
-    # query, fnv, rnv and free (16 B) and its whole key row (4F B), and
-    # writes value, found and consistent (6 B); a lane whose row holds the
-    # query also reads that slot's value and FEV/REV bytes (6 B).
-    q, keys = timed_host[0], timed_host[1]
-    matched = int((keys == q[:, None]).any(axis=1).sum())
-    n_bytes = b * (4 * f + 16 + 6) + matched * 6
+    n = LEAF_POOL_ROWS
+    pool = leaf_pool(torch, n, f)
+    pool_bytes = sum(t.numel() * t.element_size() for t in pool)
+    st = pool_state(pool)
+    reps, samples = LEAF_REPS, LEAF_SAMPLES
+    leaf = torch.empty((reps, b), dtype=torch.int32, device=dev)
+    q = torch.empty_like(leaf)
+    refill = lambda: fill_leaf_queries(torch, leaf, q, n, f, gen)
+    refill()
+    new = lambda k: lookup_leaves(None, st, leaf[k], q[k])
+    old = lambda k: gathered_lookup_leaves(torch, leaf_search, pool,
+                                           leaf[k], q[k])
+    plain = lambda k: leaf_search_pool_ref(q[k], leaf[k], *pool)
+    max_err = max(max_err, _assert_same_bits(
+        torch, new(0), plain(0), "lookup_leaves at the main path"))
+    _assert_same_bits(torch, old(0), plain(0), "the gather composition")
+    ms = fresh_rows_ms(torch, new, reps, samples, refill)
+    old_ms = fresh_rows_ms(torch, old, reps, samples, refill)
+    plain_ms = fresh_rows_ms(torch, plain, reps, samples, refill)
+    warm_ms = fresh_rows_ms(torch, new, reps, samples)
+    call_ms = host_ms(torch, lambda: new(0))
+    old_call_ms = host_ms(torch, lambda: old(0))
+    plain_call_ms = host_ms(torch, lambda: plain(0))
+    per_call = kernels_per_call(torch, lambda: new(0))
+    old_per_call = kernels_per_call(torch, lambda: old(0))
+    if per_call != 1:
+        raise AssertionError(f"lookup_leaves launched {per_call} kernels "
+                             "a call")
+    # What the pool entry must move (uint8 versions): every lane reads its
+    # query and leaf id (8 B), its key row (4F B) and its node fields
+    # (3 B), and writes value, found and consistent (6 B); a lane whose
+    # row holds the query also reads that slot's value and FEV/REV (6 B).
+    # This run's rows: q == -5 is no row's key, every other query is in
+    # its row (the mean over the graph's calls).
+    matched = float((q != -5).sum()) / reps
+    n_bytes = b * (8 + 4 * f + 3 + 6) + matched * 6
     n_ops = b * f + 8 * b          # slot compares + the per-lane checks
     bytes_ms = n_bytes / HBM_BYTES_S * 1e3
     ops_ms = n_ops / SCALAR_OPS_S * 1e3
     bound_ms = max(bytes_ms, ops_ms)
-    log(f"kernel  B={b} F={f} uint8: device {ms:.6f} ms, plain device "
-        f"{plain_ms:.6f} ms (CUDA graph of 100 calls); per eager call "
-        f"{call_ms:.6f} ms, plain {plain_call_ms:.6f} ms; bound "
-        f"{bound_ms:.9f} ms ({n_bytes} bytes, {matched} matched lanes); "
-        f"{_peak(torch)}")
+    log(f"kernel  lookup_leaves B={b} F={f} uint8 on fresh random rows of a "
+        f"{n}-row pool ({pool_bytes} bytes): device {ms:.6f} ms (CUDA graph "
+        f"of {reps} calls, median of {samples}), {warm_ms:.6f} ms on rows "
+        f"already in L2; per eager call {call_ms:.6f} ms; "
+        f"{per_call:g} CUDA kernels a call (torch.profiler)")
+    log(f"kernel  gather composition (7 gathers, 3 casts, gathered-row "
+        f"entry) on the same rows: device {old_ms:.6f} ms, per eager call "
+        f"{old_call_ms:.6f} ms, {old_per_call:g} CUDA kernels a call; "
+        f"lookup_leaves is {old_ms / ms:.2f}x faster on the device and "
+        f"{old_call_ms / call_ms:.2f}x per eager call")
+    log(f"kernel  plain version (gather + search in PyTorch): device "
+        f"{plain_ms:.6f} ms, per eager call {plain_call_ms:.6f} ms; bound "
+        f"{bound_ms:.9f} ms by {'bytes' if bytes_ms >= ops_ms else 'ops'} "
+        f"({n_bytes:.1f} bytes, {matched:.2f} matched lanes a call); "
+        f"{ms / bound_ms:.1f}x the bound; {_peak(torch)}")
+    del pool, st
     return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms,
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                host_ms=call_ms, plain_host_ms=plain_call_ms)
+                host_ms=call_ms, plain_host_ms=plain_call_ms,
+                warm_ms=warm_ms, kernels_per_call=per_call,
+                gather_composition_ms=old_ms,
+                gather_composition_host_ms=old_call_ms,
+                gather_composition_kernels_per_call=old_per_call)
+
+
+#: the layers of one index wave, each a function the wave calls
+#: (label, module, attribute); a layer's own time leaves out the layers
+#: it calls.  "chase and sync" is cached_lookup's own time: the B-link
+#: chase, the leaf checks, the ``sound.all()`` host sync and the probe's
+#: result tuple; "probe" is lookup_leaves.
+WAVE_LAYERS = [
+    ("descent", "repro_torch.core.cache", "descend_image"),
+    ("chase and sync", "repro_torch.core.cache", "cached_lookup"),
+    ("retraversal", "repro_torch.core.cache", "traverse"),
+    ("probe", "repro_torch.kernels.leaf_search.ops", "lookup_leaves"),
+    ("write phase", "repro_torch.core.write", "write_phase"),
+    ("repair drain", "repro_torch.core.api", "run_repair_drain"),
+    ("verb replay", "repro_torch.core.netsim", "price_read_phase"),
+    ("verb replay", "repro_torch.core.netsim", "price_write_phase"),
+    ("verb replay", "repro_torch.core.netsim", "price_maintenance"),
+]
+#: device-to-host copies and host syncs: ``Tensor`` methods
+HOST_SYNCS = ("cpu", "item", "__bool__", "__int__")
+HOST_LABEL = "host copies and syncs"
+
+
+class WaveClock:
+    """Time the index's layers on the host clock while it is entered, by
+    wrapping each function of ``WAVE_LAYERS`` and the ``HOST_SYNCS``
+    methods; with ``ranges``, each call also opens a ``torch.profiler``
+    range named by its layer."""
+
+    def __init__(self, torch, ranges: bool = False):
+        self.torch, self.ranges = torch, ranges
+        self.own: dict[str, float] = {}
+        self.calls: dict[str, int] = {}
+        self._stack: list[float] = []
+        self._undo: list = []
+
+    def _wrap(self, label, fn):
+        clock = self
+        record = self.torch.profiler.record_function
+
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            clock._stack.append(0.0)
+            try:
+                if clock.ranges:
+                    with record(label):
+                        return fn(*args, **kw)
+                return fn(*args, **kw)
+            finally:
+                dt = time.perf_counter() - t0
+                inner = clock._stack.pop()
+                clock.own[label] = clock.own.get(label, 0.0) + dt - inner
+                clock.calls[label] = clock.calls.get(label, 0) + 1
+                if clock._stack:
+                    clock._stack[-1] += dt
+        return timed
+
+    def __enter__(self):
+        import importlib
+        for label, mod, attr in WAVE_LAYERS:
+            m = importlib.import_module(mod)
+            orig = getattr(m, attr)
+            setattr(m, attr, self._wrap(label, orig))
+            self._undo.append((m, attr, orig))
+        for attr in HOST_SYNCS:
+            tensor = self.torch.Tensor
+            setattr(tensor, attr, self._wrap(HOST_LABEL,
+                                             getattr(tensor, attr)))
+            self._undo.append((tensor, attr, None))   # inherited
+        return self
+
+    def __exit__(self, *exc):
+        for obj, attr, orig in reversed(self._undo):
+            if orig is None:
+                delattr(obj, attr)
+            else:
+                setattr(obj, attr, orig)
+        self._undo.clear()
+
+
+def device_ms_by_layer(prof, labels) -> tuple[float, dict, dict]:
+    """The device's busy time (ms: kernels, copies and sets), and device
+    time (ms) and kernel count (copies and sets left out) by the innermost
+    layer range around the op that launched each; "other" outside every
+    layer.  The leaf-search kernel, launched through ctypes with no op
+    around it, is found by its name and counted under "probe"."""
+    from torch.autograd import DeviceType
+    busy = 0.0
+    ms: dict[str, float] = {}
+    kernels: dict[str, int] = {}
+
+    def add(label, name, dur_ms):
+        ms[label] = ms.get(label, 0.0) + dur_ms
+        if not name.startswith(("Memcpy", "Memset")):
+            kernels[label] = kernels.get(label, 0) + 1
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU:
+            p, label = e, "other"
+            while p is not None:
+                if p.name in labels:
+                    label = p.name
+                    break
+                p = p.cpu_parent
+            for k in e.kernels:
+                if "leaf_search_kernel" not in k.name:
+                    add(label, k.name, k.duration / 1e3)
+        elif not e.is_user_annotation:
+            dur = e.time_range.elapsed_us() / 1e3
+            busy += dur
+            if "leaf_search_kernel" in e.name:
+                add("probe", e.name, dur)
+    return busy, ms, kernels
+
+
+def wave_split(torch, engine, idx, spec, keyspace: int) -> None:
+    """Two more waves of ``spec`` on ``idx`` through ``run_workload``: one
+    timed by layer on the host clock, one under ``torch.profiler`` (device
+    busy time and idle share, device time and kernels by layer)."""
+    from torch.profiler import ProfilerActivity, profile
+    one = dataclasses.replace(spec, ops=spec.batch)
+    labels = [lb for lb, _, _ in WAVE_LAYERS] + [HOST_LABEL]
+    labels = list(dict.fromkeys(labels))
+    with WaveClock(torch) as clock:
+        t0 = time.perf_counter()
+        engine.run_workload(idx, one, seed=2, keyspace=keyspace)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    parts = {lb: clock.own.get(lb, 0.0) * 1e3 for lb in labels}
+    parts["other (keys, padding, glue)"] = wall * 1e3 - sum(parts.values())
+    log(f"deploy  wave split (host clock, {one.batch} ops): wall "
+        f"{wall * 1e3:.3f} ms; " + "; ".join(
+            f"{lb} {v:.3f} ms ({clock.calls.get(lb, 0)} calls)"
+            for lb, v in parts.items()))
+    with WaveClock(torch, ranges=True):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            engine.run_workload(idx, one, seed=3, keyspace=keyspace)
+            torch.cuda.synchronize()
+            wall_p = time.perf_counter() - t0
+    busy, ms, kernels = device_ms_by_layer(prof, labels)
+    log(f"deploy  wave profile (torch.profiler, {one.batch} ops): wall "
+        f"{wall_p * 1e3:.3f} ms, device busy {busy:.3f} ms, idle share "
+        f"{1 - busy / (wall_p * 1e3):.3f}; device ms (kernels) by layer: "
+        + "; ".join(f"{lb} {ms[lb]:.3f} ({kernels.get(lb, 0)})"
+                    for lb in sorted(ms, key=lambda x: -ms[x])))
+    if kernels.get("probe") != 1:
+        raise AssertionError(f"the profiled wave's probe launched "
+                             f"{kernels.get('probe')} kernels")
 
 
 def phase_parity(torch, leaf_search, engine, get_preset):
@@ -373,26 +703,49 @@ def phase_deploy(torch, leaf_search, records: int, nodes_per_ms: int):
             acked[kk] = vv
     idx.insert = recording_insert
 
-    leaf_search.launches = 0
+    # the probe's batch sizes and kernel launches, per lookup_leaves call
+    from repro_torch.kernels.leaf_search import ops as leaf_ops
+    probe = leaf_ops.lookup_leaves
+    probes: dict[tuple[int, int], int] = {}
+
+    def counting_probe(cfg, st, leaf, qkeys):
+        n0 = leaf_search.launches
+        out = probe(cfg, st, leaf, qkeys)
+        key = (int(leaf.shape[0]), leaf_search.launches - n0)
+        probes[key] = probes.get(key, 0) + 1
+        return out
+    leaf_ops.lookup_leaves = counting_probe
+
+    leaf_search.launches = leaf_search.launches_pool = 0
     t4 = time.perf_counter()
     res = engine.run_workload(idx, spec, keyspace=keyspace,
                               system="sherman")
     torch.cuda.synchronize()
     t5 = time.perf_counter()
     launches = leaf_search.launches
+    pool_launches = leaf_search.launches_pool
+    leaf_ops.lookup_leaves = probe
     run_s = t5 - t4
     peak = torch.cuda.max_memory_allocated()
+    waves = -(-spec.ops // spec.batch)
     log(f"deploy  run {run_s:.3f} s, {res.n_ops / run_s:.1f} ops/s "
-        f"wall-clock on the card; netsim mops {res.mops} p50_us "
-        f"{res.p50_us} p99_us {res.p99_us}; leaf_search launches "
-        f"{launches}; max_memory_allocated {peak}")
+        f"wall-clock on the card ({run_s / waves * 1e3:.3f} ms a wave); "
+        f"netsim mops {res.mops} p50_us {res.p50_us} p99_us {res.p99_us}; "
+        f"leaf_search launches {launches} (pool entry {pool_launches}); "
+        f"max_memory_allocated {peak}")
+    log("deploy  probes (lookup_leaves calls) by (batch size, kernel "
+        "launches a call): " + ", ".join(
+            f"{k}: {v}" for k, v in sorted(probes.items())))
     for name in ("mops", "p50_us", "p99_us"):
         v = getattr(res, name)
         if not (math.isfinite(v) and v > 0):
             raise AssertionError(f"deploy: {name}={v}")
-    if res.n_ops != spec.ops or launches <= 0:
+    if res.n_ops != spec.ops or launches <= 0 or pool_launches != launches \
+            or any(n != 1 for _, n in probes):
         raise AssertionError(f"deploy: n_ops={res.n_ops} "
-                             f"launches={launches}")
+                             f"launches={launches} (pool entry "
+                             f"{pool_launches}), probes {probes}")
+    wave_split(torch, engine, idx, spec, keyspace)
 
     # -- the guarantee: every acknowledged write reads back, and the
     # untouched loaded records keep their load values --
@@ -783,8 +1136,11 @@ def main(argv=None) -> int:
     from repro_torch.kernels.flash_attention.kernel import (_route,
                                                             flash_attention)
     from repro_torch.kernels.flash_attention.ref import attention_ref
-    from repro_torch.kernels.leaf_search.kernel import leaf_search
-    from repro_torch.kernels.leaf_search.ref import leaf_search_ref
+    from repro_torch.kernels.leaf_search.kernel import (leaf_search,
+                                                        leaf_search_pool)
+    from repro_torch.kernels.leaf_search.ops import lookup_leaves
+    from repro_torch.kernels.leaf_search.ref import (leaf_search_pool_ref,
+                                                     leaf_search_ref)
     from repro_torch.kernels.rwkv_scan.kernel import wkv6
     from repro_torch.kernels.rwkv_scan.ops import wkv6_seq
     from repro_torch.kernels.rwkv_scan.ref import wkv6_ref
@@ -811,7 +1167,9 @@ def main(argv=None) -> int:
 
     # 3. each kernel against its plain version
     numbers = {"leaf_search": phase_kernel(torch, leaf_search,
-                                           leaf_search_ref),
+                                           leaf_search_ref, leaf_search_pool,
+                                           leaf_search_pool_ref,
+                                           lookup_leaves),
                "flash_attention": phase_flash(torch, flash_attention,
                                               attention_ref, _route),
                "wkv6": phase_wkv(torch, wkv6, wkv6_ref, wkv6_seq)}

@@ -1,112 +1,260 @@
 // Batched unsorted-leaf search with the two-level version check (Sherman,
 // paper Fig. 9), for Hopper (sm_90a).  Replaces the Pallas TPU kernel
-// repro/kernels/leaf_search/kernel.py::leaf_search.
+// repro/kernels/leaf_search/kernel.py::leaf_search and the gather around it
+// (repro/kernels/leaf_search/ops.py::lookup_leaves).
 //
-// For each query lane b: find the first slot s of its leaf row with
-// keys[b, s] == qkeys[b]; then
-//   node_ok    = fnv[b] == rnv[b] && free[b] == 0
-//   consistent = node_ok && (fev[b, s] == rev[b, s] || !found)
-//   value      = found && consistent ? vals[b, s] : -1
+// For each query lane b, with r its leaf row: find the first slot s with
+// keys[r, s] == qkeys[b]; then
+//   node_ok    = fnv[r] == rnv[r] && free[r] == 0
+//   consistent = node_ok && (fev[r, s] == rev[r, s] || !found)
+//   value      = found && consistent ? vals[r, s] : -1
 // and write (value, found && consistent, consistent).
 //
-// One warp per query lane: the F slots are strided over the warp's 32
-// threads (neighbouring threads read neighbouring keys), __ballot_sync
-// collects the matches of each 32-slot chunk, and __ffs of the lowest
-// chunk with a match gives the first matching slot.  Lane 0 writes the
-// three outputs.  The grid covers ceil(B * 32 / 256) blocks of 8 warps and
-// masks its own ragged edge, so any B >= 1 and any F <= 256 run.
+// Two entries share this one body.  With a leaf-id array, r = leaf[b] is a
+// row of the node pool itself (wrapped like a negative index, then clamped
+// to the pool, as JAX's gather does), and the kernel reads the row where
+// it lies: no gathered copy of the rows exists.  Without one (null), r = b
+// and the arrays are rows already gathered, the TPU kernel's own
+// signature.
 //
-// The work is tiny (a key row plus 22 B per lane and 6 B more where the
-// row holds the query, ~47 KB at B = 512, F = 16): the kernel is bound by
-// launch latency, not by bytes.
+// Bound: latency, not bytes.  A lane needs its query and leaf id, its key
+// row and 3 B of node fields, 6 B more where the row holds the query, and
+// writes 6 B: ~45 KB at B = 512, F = 16, ~13 ns of HBM time.  What costs is
+// the launch and the dependent memory round trips: the leaf id, then a row
+// that is a cold random row of a pool far larger than L2.  So the design
+// (a) issues every load of the row at once, as soon as the leaf id
+// arrives -- the key, value and FEV/REV of the thread's slot and the node
+// fields -- and selects in registers: one round trip after the leaf id
+// where a search-then-select takes two (LEAF_SPECULATIVE = 0 is that
+// variant, ~0.3 us slower on the H100); (b) gives a lane a group of F
+// threads (a power of two, at most a warp; wider rows loop over chunks of
+// slots, so any F <= 256 runs), one slot each, so at F = 16 a warp serves
+// two lanes and each load instruction touches two rows; 16-byte loads by
+// 4 threads a lane (LEAF_VEC = 4) make each instruction touch eight rows
+// and measured ~0.25 us slower, as did a warp per lane; a ballot masked to
+// the group and __ffs give the first matching slot; (c) reads the pool
+// through the read-only path (__ldg) with no shared memory, since no row
+// is read twice.  The grid masks its own ragged edge, so any B >= 0 runs.
+//
+// The knobs below are the design; scripts/leaf_search_variant_timing.py
+// builds variants by overriding them with -D (16-byte loads, warp per
+// lane, dependent select, lanes per block) and PERF.md has its table.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#ifndef LEAF_THREADS        // threads per block
+#define LEAF_THREADS 128
+#endif
+#ifndef LEAF_VEC            // slots a thread loads at once (4: 16-byte keys)
+#define LEAF_VEC 1
+#endif
+#ifndef LEAF_GROUP_MIN      // fewest threads per lane (32: warp per lane)
+#define LEAF_GROUP_MIN 1
+#endif
+#ifndef LEAF_SPECULATIVE    // 1: vals/fev/rev loaded with the keys
+#define LEAF_SPECULATIVE 1
+#endif
 
 namespace {
 
 constexpr int kWarp = 32;
-constexpr int kThreads = 256;
 
-template <typename Ver>
-__global__ void leaf_search_kernel(const int32_t* __restrict__ qkeys,
-                                   const int32_t* __restrict__ keys,
-                                   const int32_t* __restrict__ vals,
-                                   const Ver* __restrict__ fev,
-                                   const Ver* __restrict__ rev,
-                                   const int32_t* __restrict__ fnv,
-                                   const int32_t* __restrict__ rnv,
-                                   const int32_t* __restrict__ free_bit,
-                                   int32_t* __restrict__ out_value,
-                                   uint8_t* __restrict__ out_found,
-                                   uint8_t* __restrict__ out_consistent,
-                                   int64_t b, int f) {
-  const int lane = threadIdx.x % kWarp;
-  const int64_t q = (static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                     threadIdx.x) / kWarp;
-  if (q >= b) return;  // uniform across the warp: blockDim is a multiple of 32
+// VEC consecutive slots of a row, widened to int32.
+template <int VEC>
+__device__ __forceinline__ void load_slots(const int32_t* p, int32_t* out) {
+  if constexpr (VEC == 4) {
+    const int4 x = __ldg(reinterpret_cast<const int4*>(p));
+    out[0] = x.x; out[1] = x.y; out[2] = x.z; out[3] = x.w;
+  } else {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) out[i] = __ldg(p + i);
+  }
+}
 
-  const int32_t key = qkeys[q];
-  const int32_t* row = keys + q * f;
-  int slot = -1;
-  for (int base = 0; base < f; base += kWarp) {
-    const int s = base + lane;
-    const unsigned match = __ballot_sync(0xffffffffu, s < f && row[s] == key);
-    if (match) {
-      slot = base + __ffs(match) - 1;
-      break;  // every lane sees the same ballot, so the warp leaves together
+template <int VEC>
+__device__ __forceinline__ void load_slots(const uint8_t* p, int32_t* out) {
+  if constexpr (VEC == 4) {
+    const uchar4 x = __ldg(reinterpret_cast<const uchar4*>(p));
+    out[0] = x.x; out[1] = x.y; out[2] = x.z; out[3] = x.w;
+  } else {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) out[i] = __ldg(p + i);
+  }
+}
+
+// Ver: element type of fev/rev; Node: of fnv/rnv/free (uint8 for the
+// pool's uint8 and bool fields, int32 for the gathered entry's).  VEC is
+// LEAF_VEC where F and the row bases allow 16-byte loads, else 1.
+template <typename Ver, typename Node, int VEC>
+__global__ void __launch_bounds__(LEAF_THREADS)
+leaf_search_kernel(const int32_t* __restrict__ qkeys,
+                   const int32_t* __restrict__ leaf,
+                   const int32_t* __restrict__ keys,
+                   const int32_t* __restrict__ vals,
+                   const Ver* __restrict__ fev, const Ver* __restrict__ rev,
+                   const Node* __restrict__ fnv, const Node* __restrict__ rnv,
+                   const Node* __restrict__ free_bit,
+                   int32_t* __restrict__ out_value,
+                   uint8_t* __restrict__ out_found,
+                   uint8_t* __restrict__ out_consistent, int64_t b,
+                   int64_t n_rows, int f, int group_log2) {
+  const int group = 1 << group_log2;
+  const int64_t tid = static_cast<int64_t>(blockIdx.x) * LEAF_THREADS +
+                      threadIdx.x;
+  const int64_t q = tid >> group_log2;
+  // a whole group is live or dead: groups never straddle a warp
+  if (q >= b) return;
+  const int t = static_cast<int>(tid & (group - 1));
+  const int first = (threadIdx.x % kWarp) & ~(group - 1);  // group's warp lane
+  const unsigned gmask =
+      group == kWarp ? 0xffffffffu : ((1u << group) - 1u) << first;
+
+  int64_t r = q;
+  if (leaf != nullptr) {
+    r = __ldg(leaf + q);
+    if (r < 0) r += n_rows;
+    r = r < 0 ? 0 : (r >= n_rows ? n_rows - 1 : r);
+  }
+  const int32_t key = __ldg(qkeys + q);
+  // all three node fields load now, with the row: no short circuit
+  const Node fn = __ldg(fnv + r), rn = __ldg(rnv + r);
+  const Node fr = __ldg(free_bit + r);
+  const int64_t row = r * f;
+
+  bool found = false;
+  int32_t value = 0;
+  bool entry_ok = true;
+  bool owner = t == 0;                  // writes the lane's outputs
+  for (int base = 0; base < f; base += group * VEC) {
+    const int s0 = base + t * VEC;
+    const bool in = s0 < f;             // f % VEC == 0 when VEC > 1
+    int32_t k[VEC];
+#if LEAF_SPECULATIVE
+    int32_t v[VEC], fe[VEC], re[VEC];
+#endif
+    if (in) {
+      load_slots<VEC>(keys + row + s0, k);
+#if LEAF_SPECULATIVE
+      load_slots<VEC>(vals + row + s0, v);
+      load_slots<VEC>(fev + row + s0, fe);
+      load_slots<VEC>(rev + row + s0, re);
+#endif
+    }
+    int mine = -1;                      // first matching slot of mine
+#pragma unroll
+    for (int i = VEC - 1; i >= 0; --i)
+      if (in && (VEC == 1 || s0 + i < f) && k[i] == key) mine = i;
+    const unsigned ball = __ballot_sync(gmask, mine >= 0) >> first;
+    if (ball) {                          // the same for the whole group
+      found = true;
+      owner = t == __ffs(ball) - 1;
+      if (owner) {
+#if LEAF_SPECULATIVE
+        int32_t vv = v[0], ff = fe[0], rr = re[0];
+#pragma unroll
+        for (int i = 1; i < VEC; ++i)
+          if (mine == i) { vv = v[i]; ff = fe[i]; rr = re[i]; }
+        value = vv;
+        entry_ok = ff == rr;
+#else
+        const int64_t at = row + s0 + mine;
+        value = __ldg(vals + at);
+        entry_ok = static_cast<int32_t>(__ldg(fev + at)) ==
+                   static_cast<int32_t>(__ldg(rev + at));
+#endif
+      }
+      break;
     }
   }
-  if (lane != 0) return;
-
-  const bool found = slot >= 0;
-  const int64_t at = q * f + (found ? slot : 0);
-  const bool node_ok = fnv[q] == rnv[q] && free_bit[q] == 0;
-  const bool entry_ok =
-      static_cast<int32_t>(fev[at]) == static_cast<int32_t>(rev[at]);
+  if (!owner) return;
+  const bool node_ok = (fn == rn) & (fr == 0);
   const bool consistent = node_ok && (entry_ok || !found);
-  out_value[q] = (found && consistent) ? vals[at] : -1;
+  out_value[q] = (found && consistent) ? value : -1;
   out_found[q] = found && consistent;
   out_consistent[q] = consistent;
 }
 
-template <typename Ver>
-void launch(const void* qkeys, const void* keys, const void* vals,
-            const void* fev, const void* rev, const void* fnv,
-            const void* rnv, const void* free_bit, void* out_value,
-            void* out_found, void* out_consistent, int64_t b, int f,
-            cudaStream_t stream) {
-  const int64_t blocks = (b * kWarp + kThreads - 1) / kThreads;
-  leaf_search_kernel<Ver><<<static_cast<unsigned>(blocks), kThreads, 0,
-                            stream>>>(
-      static_cast<const int32_t*>(qkeys), static_cast<const int32_t*>(keys),
-      static_cast<const int32_t*>(vals), static_cast<const Ver*>(fev),
-      static_cast<const Ver*>(rev), static_cast<const int32_t*>(fnv),
-      static_cast<const int32_t*>(rnv), static_cast<const int32_t*>(free_bit),
-      static_cast<int32_t*>(out_value), static_cast<uint8_t*>(out_found),
-      static_cast<uint8_t*>(out_consistent), b, f);
+// Threads per lane: enough that one pass of VEC-slot loads covers the row,
+// a power of two (so groups tile a warp), at least LEAF_GROUP_MIN.
+int group_log2_for(int f, int vec) {
+  int lg = 0;
+  while ((1 << lg) * vec < f && (1 << lg) < kWarp) ++lg;
+  while ((1 << lg) < LEAF_GROUP_MIN) ++lg;
+  return lg;
+}
+
+template <typename Ver, typename Node, int VEC>
+void launch_vec(const void* qkeys, const void* leaf, const void* keys,
+                const void* vals, const void* fev, const void* rev,
+                const void* fnv, const void* rnv, const void* free_bit,
+                void* out_value, void* out_found, void* out_consistent,
+                int64_t b, int64_t n_rows, int f, cudaStream_t stream) {
+  const int lg = group_log2_for(f, VEC);
+  const int64_t threads = b << lg;
+  const unsigned blocks =
+      static_cast<unsigned>((threads + LEAF_THREADS - 1) / LEAF_THREADS);
+  leaf_search_kernel<Ver, Node, VEC><<<blocks, LEAF_THREADS, 0, stream>>>(
+      static_cast<const int32_t*>(qkeys), static_cast<const int32_t*>(leaf),
+      static_cast<const int32_t*>(keys), static_cast<const int32_t*>(vals),
+      static_cast<const Ver*>(fev), static_cast<const Ver*>(rev),
+      static_cast<const Node*>(fnv), static_cast<const Node*>(rnv),
+      static_cast<const Node*>(free_bit), static_cast<int32_t*>(out_value),
+      static_cast<uint8_t*>(out_found), static_cast<uint8_t*>(out_consistent),
+      b, n_rows, f, lg);
+}
+
+template <typename Ver, typename Node>
+int launch(const void* qkeys, const void* leaf, const void* keys,
+           const void* vals, const void* fev, const void* rev,
+           const void* fnv, const void* rnv, const void* free_bit,
+           void* out_value, void* out_found, void* out_consistent, int64_t b,
+           int64_t n_rows, int f, cudaStream_t stream) {
+  // 16-byte loads need F % 4 == 0 and 16-byte aligned row bases (then
+  // every key/value row is 16-byte and every uint8 version row 4-byte
+  // aligned)
+  const bool wide =
+      LEAF_VEC == 4 && f % 4 == 0 &&
+      (reinterpret_cast<uintptr_t>(keys) | reinterpret_cast<uintptr_t>(vals) |
+       reinterpret_cast<uintptr_t>(fev) | reinterpret_cast<uintptr_t>(rev)) %
+              16 == 0;
+  if (wide) {
+    launch_vec<Ver, Node, LEAF_VEC>(qkeys, leaf, keys, vals, fev, rev, fnv,
+                                    rnv, free_bit, out_value, out_found,
+                                    out_consistent, b, n_rows, f, stream);
+  } else {
+    launch_vec<Ver, Node, 1>(qkeys, leaf, keys, vals, fev, rev, fnv, rnv,
+                             free_bit, out_value, out_found, out_consistent,
+                             b, n_rows, f, stream);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// C entry bound with ctypes.  ``ver_bytes`` is the element size of
-// fev/rev: 1 (uint8, the tree's own dtype) or 4 (int32).  Returns
-// cudaGetLastError() after the launch; 0 means the launch was accepted.
-extern "C" int leaf_search_launch(const void* qkeys, const void* keys,
-                                  const void* vals, const void* fev,
-                                  const void* rev, const void* fnv,
-                                  const void* rnv, const void* free_bit,
-                                  void* out_value, void* out_found,
-                                  void* out_consistent, int64_t b, int f,
-                                  int ver_bytes, void* stream) {
+// C entry bound with ctypes.  ``leaf`` is null for the gathered-row entry
+// (lane b reads row b of [B, F] arrays) or an int32 [B] array of pool rows
+// (of [n_rows, F] arrays).  ``ver_bytes`` is the element size of fev/rev
+// and ``node_bytes`` of fnv/rnv/free_bit: the pool entry takes the tree's
+// own 1 and 1 (uint8 and bool), the gathered-row entry 1 or 4 and 4
+// (int32).  Returns cudaGetLastError() after the launch; 0 means the
+// launch was accepted.
+extern "C" int leaf_search_launch(const void* qkeys, const void* leaf,
+                                  const void* keys, const void* vals,
+                                  const void* fev, const void* rev,
+                                  const void* fnv, const void* rnv,
+                                  const void* free_bit, void* out_value,
+                                  void* out_found, void* out_consistent,
+                                  int64_t b, int64_t n_rows, int f,
+                                  int ver_bytes, int node_bytes,
+                                  void* stream) {
+  if (b <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (ver_bytes == 1) {
-    launch<uint8_t>(qkeys, keys, vals, fev, rev, fnv, rnv, free_bit,
-                    out_value, out_found, out_consistent, b, f, s);
-  } else if (ver_bytes == 4) {
-    launch<int32_t>(qkeys, keys, vals, fev, rev, fnv, rnv, free_bit,
-                    out_value, out_found, out_consistent, b, f, s);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+#define LEAF_LAUNCH(V, N)                                                    \
+  launch<V, N>(qkeys, leaf, keys, vals, fev, rev, fnv, rnv, free_bit,        \
+               out_value, out_found, out_consistent, b, n_rows, f, s)
+  if (ver_bytes == 1 && node_bytes == 1) return LEAF_LAUNCH(uint8_t, uint8_t);
+  if (ver_bytes == 1 && node_bytes == 4) return LEAF_LAUNCH(uint8_t, int32_t);
+  if (ver_bytes == 4 && node_bytes == 4) return LEAF_LAUNCH(int32_t, int32_t);
+#undef LEAF_LAUNCH
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,8 +1,10 @@
-"""Plain-torch version of the leaf-search kernel (mirrors
-:mod:`repro.kernels.leaf_search.ref` line for line).
+"""Plain-torch versions of the leaf-search kernel's two entries:
+:func:`leaf_search_ref` on gathered rows (mirrors
+:mod:`repro.kernels.leaf_search.ref` line for line) and
+:func:`leaf_search_pool_ref` on the pool and leaf ids.
 
-The CPU tests run it in place of the CUDA kernel, and ``chip_smoke.py``
-holds the kernel against it on the card.
+The CPU tests run them in place of the CUDA kernel, and ``chip_smoke.py``
+holds the kernel against them on the card.
 """
 from __future__ import annotations
 
@@ -20,3 +22,18 @@ def leaf_search_ref(qkeys, keys, vals, fev, rev, fnv, rnv, free):
     value = torch.where(found & consistent, take(vals),
                         torch.full_like(qkeys, -1, dtype=torch.int32))
     return value, found & consistent, consistent
+
+
+def leaf_search_pool_ref(qkeys, leaf, keys, vals, fev, rev, fnv, rnv,
+                         free_bit):
+    """The pool entry's plain version: gather each lane's leaf row with
+    torch indexing and search it (the composition the JAX
+    ``lookup_leaves`` computes).  A leaf id is wrapped like a negative
+    index and then clamped to the pool, as JAX's gather does."""
+    n = keys.shape[0]
+    leaf = leaf.long()
+    leaf = torch.where(leaf < 0, leaf + n, leaf).clamp(0, max(n - 1, 0))
+    i32 = torch.int32
+    return leaf_search_ref(qkeys, keys[leaf], vals[leaf], fev[leaf],
+                           rev[leaf], fnv[leaf].to(i32), rnv[leaf].to(i32),
+                           free_bit[leaf].to(i32))

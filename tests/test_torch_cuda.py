@@ -6,7 +6,8 @@ collects it:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Without a card every test skips.  Tolerances: leaf search exact; flash
+Without a card every test skips.  Tolerances: leaf search exact (both
+entries: gathered rows, and the pool with leaf ids); flash
 attention 2e-5 in f32 and 3e-2 in bf16 at the reference kernel test's
 shapes (tests/test_kernels.py), 4e-3 absolute plus 1e-2 relative in bf16
 at the models' widths and on the wgmma route's own cases; WKV6 1e-4 in
@@ -18,12 +19,17 @@ import pytest
 import torch
 
 from repro_torch import configs as TC
+from repro_torch.core import tree as TT
+from repro_torch.core.api import ShermanIndex
 from repro_torch.kernels.flash_attention.kernel import (_route,
                                                         flash_attention)
 from repro_torch.kernels.flash_attention.ops import flash_sdpa
 from repro_torch.kernels.flash_attention.ref import attention_ref
-from repro_torch.kernels.leaf_search.kernel import leaf_search
-from repro_torch.kernels.leaf_search.ref import leaf_search_ref
+from repro_torch.kernels.leaf_search.kernel import (leaf_search,
+                                                    leaf_search_pool)
+from repro_torch.kernels.leaf_search.ops import lookup_leaves
+from repro_torch.kernels.leaf_search.ref import (leaf_search_pool_ref,
+                                                 leaf_search_ref)
 from repro_torch.kernels.rwkv_scan.kernel import CHUNK, wkv6
 from repro_torch.kernels.rwkv_scan.ops import wkv6_seq
 from repro_torch.kernels.rwkv_scan.ref import wkv6_ref
@@ -75,6 +81,117 @@ def test_leaf_search_kernel_matches_plain_version(b, f):
     assert leaf_search.launches == n0 + 1
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+def assert_same_bits(got, want):
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.device == w.device
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("b,f,offset", [(300, 6, 0), (64, 13, 0),
+                                        (256, 16, 1), (100, 32, 2)])
+def test_leaf_search_kernel_unaligned_rows(b, f, offset):
+    """Rows the 16-byte loads cannot take (F % 4 != 0, or row arrays that
+    start off a 16-byte boundary) go through the scalar loads."""
+    host = leaf_inputs(b + f, b, f)
+    args = [torch.from_numpy(a).cuda() for a in host]
+    for i in (1, 2, 3, 4):                       # keys, vals, fev, rev
+        buf = torch.empty(b * f + offset, dtype=args[i].dtype, device="cuda")
+        args[i] = buf[offset:].view(b, f).copy_(args[i])
+    n0 = leaf_search.launches
+    got = leaf_search(*args)
+    torch.cuda.synchronize()
+    assert leaf_search.launches == n0 + 1
+    assert_same_bits(got, leaf_search_ref(*args))
+
+
+def torn_pool(fanout, lanes, seed):
+    """A bulkloaded pool (built on the CPU, moved to the card) with torn
+    versions: fnv != rnv on some leaves, free_bit on others, fev != rev in
+    every entry of some leaves and in half the entries of others; and
+    ``lanes`` int32 queries: leaf ids of torn and clean leaves and of other
+    rows (internal, unallocated, negative, past the pool), with keys of the
+    row's slots or absent."""
+    cfg = TT.TreeConfig(n_ms=2, nodes_per_ms=1024, fanout=fanout,
+                        n_locks_per_ms=1024, max_height=8, n_cs=2)
+    rng = np.random.default_rng(seed)
+    keys = rng.choice(1 << 20, size=30 * fanout, replace=False)
+    st = ShermanIndex.build(cfg, keys.astype(np.int32),
+                            (keys * 3).astype(np.int32), device="cpu").state
+    leaves = rng.permutation(np.nonzero(st.level.numpy() == 0)[0])
+    st.fnv[leaves[:3]] += 1
+    st.free_bit[leaves[3:5]] = True
+    st.fev[leaves[5:8]] += 1
+    st.rev[leaves[8:11], ::2] += 1
+    n = cfg.n_nodes
+    kind = rng.integers(0, 10, lanes)
+    row = np.where(kind < 3, rng.choice(leaves[:11], lanes),
+          np.where(kind < 6, rng.choice(leaves, lanes),
+          np.where(kind < 8, rng.integers(0, n, lanes),
+          np.where(kind < 9, rng.integers(-n - 3, 0, lanes),
+                   rng.integers(n, n + 5, lanes)))))
+    at = np.clip(np.where(row < 0, row + n, row), 0, n - 1)
+    slot_key = st.keys.numpy()[at, rng.integers(0, fanout, lanes)]
+    q = np.where(rng.random(lanes) < 0.7, slot_key,
+                 (1 << 22) + np.arange(lanes))
+    st = TT.TreeState(*[x.cuda() for x in st])
+    return (cfg, st, torch.from_numpy(row.astype(np.int32)).cuda(),
+            torch.from_numpy(q.astype(np.int32)).cuda())
+
+
+def pool_args(st, leaf, q):
+    return (q, leaf, st.keys, st.vals, st.fev, st.rev, st.fnv, st.rnv,
+            st.free_bit)
+
+
+@pytest.mark.parametrize("f", [8, 16, 32, 64])
+@pytest.mark.parametrize("b", [512, 300, 1])
+def test_leaf_search_pool_kernel_matches_plain_version(b, f):
+    """One launch per lookup_leaves, bit for bit with the plain version
+    (gather + search) on the same card tensors, and with itself."""
+    cfg, st, leaf, q = torn_pool(f, b, b * f)
+    n0, p0 = leaf_search.launches, leaf_search.launches_pool
+    got = lookup_leaves(cfg, st, leaf, q)
+    torch.cuda.synchronize()
+    assert (leaf_search.launches, leaf_search.launches_pool) == (n0 + 1,
+                                                                 p0 + 1)
+    want = leaf_search_pool_ref(*pool_args(st, leaf, q))
+    assert_same_bits(got, want)
+    if b >= 300:
+        found, cons = want[1], want[2]
+        assert bool(found.any() and (~cons).any() and (cons & ~found).any())
+    again = leaf_search_pool(*pool_args(st, leaf, q))
+    torch.cuda.synchronize()
+    assert leaf_search.launches == n0 + 2
+    assert_same_bits(again, got)
+
+
+def test_leaf_search_pool_empty_batch_launches_nothing():
+    cfg, st, leaf, q = torn_pool(16, 0, 5)
+    n0 = leaf_search.launches
+    got = lookup_leaves(cfg, st, leaf, q)
+    assert leaf_search.launches == n0
+    assert [t.shape for t in got] == [(0,)] * 3
+
+
+@pytest.mark.parametrize("break_arg", ["leaf_int64", "qkeys_int64",
+                                       "leaf_on_cpu", "pool_on_cpu"])
+def test_leaf_search_pool_raises_without_launching(break_arg):
+    cfg, st, leaf, q = torn_pool(16, 64, 9)
+    args = list(pool_args(st, leaf, q))
+    if break_arg == "leaf_int64":
+        args[1] = leaf.long()
+    elif break_arg == "qkeys_int64":
+        args[0] = q.long()
+    elif break_arg == "leaf_on_cpu":
+        args[1] = leaf.cpu()
+    else:
+        args[2] = st.keys.cpu()
+    n0 = leaf_search.launches
+    with pytest.raises((TypeError, ValueError)):
+        leaf_search_pool(*args)
+    assert leaf_search.launches == n0
 
 
 # --------------------------------------------------------------------------

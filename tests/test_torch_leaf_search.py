@@ -1,8 +1,12 @@
-"""PyTorch port, leaf-search kernel: the plain version and the wrapper on CPU
-tensors against the reference's Pallas kernel (interpret mode) and its jnp
-oracle, on the reference kernel test's shapes, a ragged batch and the tree's
-own uint8 versions; the pool wrapper on a bulkloaded tree; the CUDA kernel
-against the plain version is in test_torch_cuda.py.  Tolerance: exact."""
+"""PyTorch port, leaf-search kernel: the gathered-row entry's plain version
+and wrapper on CPU tensors against the reference's Pallas kernel (interpret
+mode) and its jnp oracle, on the reference kernel test's shapes, a ragged
+batch and the tree's own uint8 versions; the pool entry
+(``leaf_search_pool_ref`` and ``lookup_leaves``) against the reference's
+``lookup_leaves`` on bulkloaded and written trees with torn versions, at
+the kernel test's shapes, a ragged batch and an empty one; the wrappers'
+refusals.  The CUDA kernel against the plain versions is in
+test_torch_cuda.py.  Tolerance: exact."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -13,9 +17,12 @@ from repro.kernels.leaf_search.kernel import leaf_search as j_leaf_search
 from repro.kernels.leaf_search.ops import lookup_leaves as j_lookup_leaves
 from repro.kernels.leaf_search.ref import leaf_search_ref as j_ref
 from repro_torch.core import tree as TT
-from repro_torch.kernels.leaf_search.kernel import leaf_search
+from repro_torch.core.api import ShermanIndex
+from repro_torch.kernels.leaf_search.kernel import (leaf_search,
+                                                    leaf_search_pool)
 from repro_torch.kernels.leaf_search.ops import lookup_leaves
-from repro_torch.kernels.leaf_search.ref import leaf_search_ref
+from repro_torch.kernels.leaf_search.ref import (leaf_search_pool_ref,
+                                                 leaf_search_ref)
 
 
 def make_inputs(seed, b, f):
@@ -120,3 +127,115 @@ def test_lookup_leaves_on_a_bulkloaded_tree():
                         torch.from_numpy(q))
     assert_outputs_equal(want, got)
     assert not np.asarray(want[2]).all()          # the torn lanes showed
+
+
+# --------------------------------------------------------------------------
+# the pool entry against the reference's lookup_leaves
+# --------------------------------------------------------------------------
+
+def torn_tree(fanout, lanes, written, seed):
+    """A port index's pool on the CPU: bulkloaded and, with ``written``,
+    after inserts that split leaves and deletes; then torn: fnv != rnv on
+    some leaves, free_bit on others, fev != rev in every entry of some
+    leaves and in half the entries of others.  And ``lanes`` queries: leaf
+    ids of torn and clean leaves and of other rows (internal, unallocated,
+    negative, past the pool), with keys of the row's slots or absent."""
+    cfg = TT.TreeConfig(n_ms=2, nodes_per_ms=1024, fanout=fanout,
+                        n_locks_per_ms=1024, max_height=8, n_cs=2)
+    rng = np.random.default_rng(seed)
+    keys = rng.choice(1 << 20, size=30 * fanout, replace=False)
+    idx = ShermanIndex.build(cfg, keys.astype(np.int32),
+                             (keys * 3).astype(np.int32), device="cpu")
+    if written:
+        new = rng.choice(1 << 21, size=24 * fanout, replace=False)
+        new = new[~np.isin(new, keys)].astype(np.int32)
+        for lo in range(0, new.size, 64):
+            idx.insert(new[lo:lo + 64], new[lo:lo + 64] + 7)
+        idx.delete(rng.choice(keys, size=4 * fanout,
+                              replace=False).astype(np.int32))
+        assert idx.counters["leaf_splits"] > 0
+    st = idx.state
+    leaves = rng.permutation(np.nonzero(st.level.numpy() == 0)[0])
+    st.fnv[leaves[:3]] += 1
+    st.free_bit[leaves[3:5]] = True
+    st.fev[leaves[5:8]] += 1
+    st.rev[leaves[8:11], ::2] += 1
+    n = cfg.n_nodes
+    kind = rng.integers(0, 10, lanes)
+    row = np.where(kind < 3, rng.choice(leaves[:11], lanes),
+          np.where(kind < 6, rng.choice(leaves, lanes),
+          np.where(kind < 8, rng.integers(0, n, lanes),
+          np.where(kind < 9, rng.integers(-n - 3, 0, lanes),
+                   rng.integers(n, n + 5, lanes)))))
+    at = np.clip(np.where(row < 0, row + n, row), 0, n - 1)
+    slot_key = st.keys.numpy()[at, rng.integers(0, fanout, lanes)]
+    q = np.where(rng.random(lanes) < 0.7, slot_key,
+                 (1 << 22) + np.arange(lanes))
+    return cfg, st, row.astype(np.int32), q.astype(np.int32)
+
+
+def jax_state(st):
+    return JT.TreeState(*[jnp.asarray(a) for a in TT.state_to_numpy(st)])
+
+
+def jax_lookup_leaves(jst, leaf, q):
+    """The reference's lookup_leaves (Pallas in interpret mode) where its
+    tiling takes the batch (B <= 256 or a multiple of 256), else the same
+    gather into its jnp oracle."""
+    b = leaf.shape[0]
+    if 0 < b and (b <= 256 or b % 256 == 0):
+        cfg = None                              # unused by the function
+        return j_lookup_leaves(cfg, jst, jnp.asarray(leaf), jnp.asarray(q),
+                               interpret=True)
+    r = jnp.asarray(leaf)
+    i32 = jnp.int32
+    return j_ref(jnp.asarray(q), jst.keys[r], jst.vals[r], jst.fev[r],
+                 jst.rev[r], jst.fnv[r].astype(i32), jst.rnv[r].astype(i32),
+                 jst.free_bit[r].astype(i32))
+
+
+# (fanout, lanes, written): the reference kernel test's shapes on fresh
+# trees, two written trees, a ragged batch, one lane and none
+POOL_CASES = [(8, 256, False), (16, 512, False), (32, 128, False),
+              (64, 256, False), (8, 256, True), (16, 512, True),
+              (16, 300, False), (16, 1, False), (16, 0, False)]
+
+
+@pytest.mark.parametrize("fanout,lanes,written", POOL_CASES)
+def test_pool_entry_matches_jax_lookup_leaves(fanout, lanes, written):
+    cfg, st, leaf, q = torn_tree(fanout, lanes, written, fanout + lanes)
+    want = jax_lookup_leaves(jax_state(st), leaf, q)
+    tl, tq = torch.from_numpy(leaf), torch.from_numpy(q)
+    assert_outputs_equal(want, leaf_search_pool_ref(
+        tq, tl, st.keys, st.vals, st.fev, st.rev, st.fnv, st.rnv,
+        st.free_bit))
+    assert_outputs_equal(want, lookup_leaves(cfg, st, tl, tq))
+    if lanes >= 128:
+        # every branch of `consistent` showed: torn node, freed node, torn
+        # entry found, torn row but the query absent, and clean hits
+        found, cons = np.asarray(want[1]), np.asarray(want[2])
+        assert found.any() and (~cons).any() and (cons & ~found).any()
+
+
+@pytest.mark.parametrize("break_arg", ["leaf_dtype", "pool_dtype", "shape",
+                                       "contiguity", "fanout", "device"])
+def test_pool_wrapper_refuses_what_the_kernel_does_not_take(break_arg):
+    _, st, leaf, q = torn_tree(8, 16, False, 3)
+    args = [torch.from_numpy(q), torch.from_numpy(leaf), st.keys, st.vals,
+            st.fev, st.rev, st.fnv, st.rnv, st.free_bit]
+    if break_arg == "leaf_dtype":
+        args[1] = args[1].long()
+    elif break_arg == "pool_dtype":
+        args[6] = args[6].to(torch.int32)
+    elif break_arg == "shape":
+        args[7] = args[7][:4]
+    elif break_arg == "contiguity":
+        args[3] = args[3].t().contiguous().t()
+    elif break_arg == "fanout":
+        args[2:6] = [a.repeat(1, 40) for a in args[2:6]]
+    else:
+        args[0] = args[0].to("meta")
+    n0 = leaf_search.launches
+    with pytest.raises((TypeError, ValueError)):
+        leaf_search_pool(*args)
+    assert leaf_search.launches == n0

@@ -4,28 +4,29 @@ card, at the main path's shape against a pool far larger than L2.
 
     python scripts/leaf_search_variant_timing.py [--rows N] [--turns 2]
 
-Each variant is ``src/repro_torch/csrc/leaf_search.cu`` built with its
-design knobs overridden by ``-D`` flags (``VARIANTS`` below), one ``nvcc``
-per variant, all started together, into ``build/leaf_variants/``; ptxas's
-registers and spills are printed for each.  Every variant is then held
-bit for bit against the plain versions (the pool entry on torn rows at
-F = 8, 16, 32, 64, a ragged batch and out-of-range leaf ids; the
-gathered-row entry at F = 16 and 13) and timed at B = 512, F = 16 (the
-deploy-1B probe's bucket) on a synthetic pool of ``--rows`` rows (default
-2^25, 5.5 GB): a CUDA graph of 100 ``lookup_leaves`` calls, each with its
-own fresh random leaf ids (so every row is a cold DRAM read), replayed
-for 15 samples, the median; the same with one fixed set of ids (rows in
-L2 after the first call), and with one lane a call (the launch's floor).
-Beside each variant, the gather composition (the pool rows gathered and
-cast by PyTorch, then the variant's gathered-row entry) on the same ids.
-Variants run in turns, forwards then backwards (A B ... B A), in one
-process.  Imports nothing of JAX.
+A variant is an edited copy of ``src/repro_torch/csrc/leaf_search.cu``:
+``VARIANTS`` below gives each one's text edits (each must match the
+source exactly once, so an edit that no longer applies raises).  The
+copies are written to ``build/leaf_variants/<n>/`` and built there, one
+``nvcc`` per variant, all started together; ptxas's registers and spills
+are printed for each.  Every variant is then held bit for bit against the
+plain versions (the pool entry on torn rows at F = 8, 16, 32, 64, a
+ragged batch and out-of-range leaf ids; the gathered-row entry at F = 16
+and 13) and timed at B = 512, F = 16 (the deploy-1B probe's bucket) on a
+synthetic pool of ``--rows`` rows (default 2^25, 5.5 GB): a CUDA graph of
+100 ``lookup_leaves`` calls, each with its own fresh random leaf ids (so
+every row is a cold DRAM read), replayed for 15 samples, the median; the
+same with one fixed set of ids (rows in L2 after the first call), and
+with one lane a call (the launch's floor).  Beside each variant, the
+gather composition (the pool rows gathered and cast by PyTorch, then the
+variant's gathered-row entry) on the same ids.  Variants run in turns,
+forwards then backwards (A B ... B A), in one process.  Imports nothing
+of JAX.
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
-import hashlib
 import subprocess
 import sys
 from pathlib import Path
@@ -43,37 +44,71 @@ from repro_torch.kernels.leaf_search.ops import lookup_leaves  # noqa: E402
 from repro_torch.kernels.leaf_search.ref import (  # noqa: E402
     leaf_search_pool_ref, leaf_search_ref)
 
-#: name -> -D overrides of the knobs at the top of leaf_search.cu
+# the dependent select: only the key loads with the row; the matching
+# thread loads its value and FEV/REV after the ballot (a second round trip)
+_DEPENDENT = [
+    ("""      v = __ldg(vals + at);
+      fe = __ldg(fev + at);
+      re = __ldg(rev + at);
+""", ""),
+    ("""      value = v;
+      entry_ok = fe == re;
+""", """      if (owner) {
+        value = __ldg(vals + at);
+        entry_ok = static_cast<int32_t>(__ldg(fev + at)) ==
+                   static_cast<int32_t>(__ldg(rev + at));
+      }
+""")]
+# a warp per lane whatever F (the first port's scheme, at F = 16 half idle)
+_WARP = [("  int lg = 0;\n", "  int lg = 5;\n")]
+
+
+def _block(n: int):
+    return [("constexpr int kThreads = 128;",
+             f"constexpr int kThreads = {n};")]
+
+
+#: name -> text edits (old, new) of leaf_search.cu; the first is the source
+#: as it is
 VARIANTS = {
-    "design: F threads a lane, one slot each, speculative, 128/block": {},
-    "dependent select (vals/fev/rev after the match)":
-        {"LEAF_SPECULATIVE": 0},
-    "16-byte loads (4 threads a lane at F=16)": {"LEAF_VEC": 4},
-    "16-byte loads, 32/block": {"LEAF_VEC": 4, "LEAF_THREADS": 32},
+    "design: F threads a lane, one slot each, speculative, 128/block": [],
+    "dependent select (vals/fev/rev after the match)": _DEPENDENT,
     "warp per lane, dependent (the first port's scheme), 256/block":
-        {"LEAF_GROUP_MIN": 32, "LEAF_SPECULATIVE": 0, "LEAF_THREADS": 256},
-    "warp per lane, speculative, 256/block":
-        {"LEAF_GROUP_MIN": 32, "LEAF_THREADS": 256},
-    "64 threads a block": {"LEAF_THREADS": 64},
-    "256 threads a block": {"LEAF_THREADS": 256},
-    "512 threads a block": {"LEAF_THREADS": 512},
+        _WARP + _DEPENDENT + _block(256),
+    "warp per lane, speculative, 256/block": _WARP + _block(256),
+    "64 threads a block": _block(64),
+    "256 threads a block": _block(256),
+    "512 threads a block": _block(512),
 }
 B, F = 512, 16
 REPS, SAMPLES = 100, 15
 I32 = torch.int32
 
 
+def edited(src: str, edits) -> str:
+    """``src`` with each (old, new) edit made; raise unless ``old`` occurs
+    exactly once."""
+    for old, new in edits:
+        if src.count(old) != 1:
+            raise ValueError(f"edit does not match leaf_search.cu once: "
+                             f"{old!r}")
+        src = src.replace(old, new)
+    return src
+
+
 def build_variants(out_dir: Path) -> dict[str, Path]:
-    """One nvcc per variant, all started together; raise on a failure."""
-    src = build.CSRC / "leaf_search.cu"
-    out_dir.mkdir(parents=True, exist_ok=True)
+    """One edited copy of the source and one nvcc per variant, all
+    started together; raise on a failure."""
+    src = (build.CSRC / "leaf_search.cu").read_text()
     jobs = {}
-    for name, defs in VARIANTS.items():
-        flags = [*build.NVCC_FLAGS, *(f"-D{k}={v}" for k, v in defs.items())]
-        tag = hashlib.sha256(src.read_bytes() + " ".join(flags).encode())
-        out = out_dir / f"leaf_search-{tag.hexdigest()[:16]}.so"
+    for i, (name, edits) in enumerate(VARIANTS.items()):
+        d = out_dir / str(i)
+        d.mkdir(parents=True, exist_ok=True)
+        (d / "leaf_search.cu").write_text(edited(src, edits))
+        out = d / "leaf_search.so"
         jobs[name] = (out, subprocess.Popen(
-            [build.find_nvcc(), *flags, "-o", str(out), str(src)],
+            [build.find_nvcc(), *build.NVCC_FLAGS, "-o", str(out),
+             str(d / "leaf_search.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for name, (out, proc) in jobs.items():

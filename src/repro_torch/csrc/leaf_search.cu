@@ -21,72 +21,32 @@
 // row and 3 B of node fields, 6 B more where the row holds the query, and
 // writes 6 B: ~45 KB at B = 512, F = 16, ~13 ns of HBM time.  What costs is
 // the launch and the dependent memory round trips: the leaf id, then a row
-// that is a cold random row of a pool far larger than L2.  So the design
+// that is a cold random row of a pool far larger than L2.  So the kernel
 // (a) issues every load of the row at once, as soon as the leaf id
 // arrives -- the key, value and FEV/REV of the thread's slot and the node
 // fields -- and selects in registers: one round trip after the leaf id
-// where a search-then-select takes two (LEAF_SPECULATIVE = 0 is that
-// variant, ~0.3 us slower on the H100); (b) gives a lane a group of F
-// threads (a power of two, at most a warp; wider rows loop over chunks of
-// slots, so any F <= 256 runs), one slot each, so at F = 16 a warp serves
-// two lanes and each load instruction touches two rows; 16-byte loads by
-// 4 threads a lane (LEAF_VEC = 4) make each instruction touch eight rows
-// and measured ~0.25 us slower, as did a warp per lane; a ballot masked to
-// the group and __ffs give the first matching slot; (c) reads the pool
-// through the read-only path (__ldg) with no shared memory, since no row
-// is read twice.  The grid masks its own ragged edge, so any B >= 0 runs.
-//
-// The knobs below are the design; scripts/leaf_search_variant_timing.py
-// builds variants by overriding them with -D (16-byte loads, warp per
-// lane, dependent select, lanes per block) and PERF.md has its table.
+// where a search-then-select takes two; (b) gives a lane a group of
+// threads, one slot each: F rounded up to a power of two, at most a warp
+// (wider rows loop over chunks of 32 slots, so any F <= 256 runs), so at
+// F = 16 a warp serves two lanes; a ballot masked to the group and __ffs
+// give the first matching slot; (c) reads the pool through the read-only
+// path (__ldg) with no shared memory, since no row is read twice.  The
+// grid masks its own ragged edge, so any B >= 0 runs.
+// scripts/leaf_search_variant_timing.py times edited copies of this file
+// (a dependent select, a warp per lane, other block sizes); PERF.md has
+// its table.
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#ifndef LEAF_THREADS        // threads per block
-#define LEAF_THREADS 128
-#endif
-#ifndef LEAF_VEC            // slots a thread loads at once (4: 16-byte keys)
-#define LEAF_VEC 1
-#endif
-#ifndef LEAF_GROUP_MIN      // fewest threads per lane (32: warp per lane)
-#define LEAF_GROUP_MIN 1
-#endif
-#ifndef LEAF_SPECULATIVE    // 1: vals/fev/rev loaded with the keys
-#define LEAF_SPECULATIVE 1
-#endif
 
 namespace {
 
 constexpr int kWarp = 32;
-
-// VEC consecutive slots of a row, widened to int32.
-template <int VEC>
-__device__ __forceinline__ void load_slots(const int32_t* p, int32_t* out) {
-  if constexpr (VEC == 4) {
-    const int4 x = __ldg(reinterpret_cast<const int4*>(p));
-    out[0] = x.x; out[1] = x.y; out[2] = x.z; out[3] = x.w;
-  } else {
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) out[i] = __ldg(p + i);
-  }
-}
-
-template <int VEC>
-__device__ __forceinline__ void load_slots(const uint8_t* p, int32_t* out) {
-  if constexpr (VEC == 4) {
-    const uchar4 x = __ldg(reinterpret_cast<const uchar4*>(p));
-    out[0] = x.x; out[1] = x.y; out[2] = x.z; out[3] = x.w;
-  } else {
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) out[i] = __ldg(p + i);
-  }
-}
+constexpr int kThreads = 128;  // threads per block
 
 // Ver: element type of fev/rev; Node: of fnv/rnv/free (uint8 for the
-// pool's uint8 and bool fields, int32 for the gathered entry's).  VEC is
-// LEAF_VEC where F and the row bases allow 16-byte loads, else 1.
-template <typename Ver, typename Node, int VEC>
-__global__ void __launch_bounds__(LEAF_THREADS)
+// pool's uint8 and bool fields, int32 for the gathered entry's).
+template <typename Ver, typename Node>
+__global__ void __launch_bounds__(kThreads)
 leaf_search_kernel(const int32_t* __restrict__ qkeys,
                    const int32_t* __restrict__ leaf,
                    const int32_t* __restrict__ keys,
@@ -99,7 +59,7 @@ leaf_search_kernel(const int32_t* __restrict__ qkeys,
                    uint8_t* __restrict__ out_consistent, int64_t b,
                    int64_t n_rows, int f, int group_log2) {
   const int group = 1 << group_log2;
-  const int64_t tid = static_cast<int64_t>(blockIdx.x) * LEAF_THREADS +
+  const int64_t tid = static_cast<int64_t>(blockIdx.x) * kThreads +
                       threadIdx.x;
   const int64_t q = tid >> group_log2;
   // a whole group is live or dead: groups never straddle a warp
@@ -125,44 +85,22 @@ leaf_search_kernel(const int32_t* __restrict__ qkeys,
   int32_t value = 0;
   bool entry_ok = true;
   bool owner = t == 0;                  // writes the lane's outputs
-  for (int base = 0; base < f; base += group * VEC) {
-    const int s0 = base + t * VEC;
-    const bool in = s0 < f;             // f % VEC == 0 when VEC > 1
-    int32_t k[VEC];
-#if LEAF_SPECULATIVE
-    int32_t v[VEC], fe[VEC], re[VEC];
-#endif
+  for (int base = 0; base < f; base += group) {
+    const bool in = base + t < f;
+    const int64_t at = row + base + t;
+    int32_t k = 0, v = 0, fe = 0, re = 0;
     if (in) {
-      load_slots<VEC>(keys + row + s0, k);
-#if LEAF_SPECULATIVE
-      load_slots<VEC>(vals + row + s0, v);
-      load_slots<VEC>(fev + row + s0, fe);
-      load_slots<VEC>(rev + row + s0, re);
-#endif
+      k = __ldg(keys + at);
+      v = __ldg(vals + at);
+      fe = __ldg(fev + at);
+      re = __ldg(rev + at);
     }
-    int mine = -1;                      // first matching slot of mine
-#pragma unroll
-    for (int i = VEC - 1; i >= 0; --i)
-      if (in && (VEC == 1 || s0 + i < f) && k[i] == key) mine = i;
-    const unsigned ball = __ballot_sync(gmask, mine >= 0) >> first;
+    const unsigned ball = __ballot_sync(gmask, in && k == key) >> first;
     if (ball) {                          // the same for the whole group
       found = true;
       owner = t == __ffs(ball) - 1;
-      if (owner) {
-#if LEAF_SPECULATIVE
-        int32_t vv = v[0], ff = fe[0], rr = re[0];
-#pragma unroll
-        for (int i = 1; i < VEC; ++i)
-          if (mine == i) { vv = v[i]; ff = fe[i]; rr = re[i]; }
-        value = vv;
-        entry_ok = ff == rr;
-#else
-        const int64_t at = row + s0 + mine;
-        value = __ldg(vals + at);
-        entry_ok = static_cast<int32_t>(__ldg(fev + at)) ==
-                   static_cast<int32_t>(__ldg(rev + at));
-#endif
-      }
+      value = v;
+      entry_ok = fe == re;
       break;
     }
   }
@@ -174,33 +112,12 @@ leaf_search_kernel(const int32_t* __restrict__ qkeys,
   out_consistent[q] = consistent;
 }
 
-// Threads per lane: enough that one pass of VEC-slot loads covers the row,
-// a power of two (so groups tile a warp), at least LEAF_GROUP_MIN.
-int group_log2_for(int f, int vec) {
+// Threads per lane: F rounded up to a power of two (so groups tile a
+// warp), at most a warp.
+int group_log2_for(int f) {
   int lg = 0;
-  while ((1 << lg) * vec < f && (1 << lg) < kWarp) ++lg;
-  while ((1 << lg) < LEAF_GROUP_MIN) ++lg;
+  while ((1 << lg) < f && (1 << lg) < kWarp) ++lg;
   return lg;
-}
-
-template <typename Ver, typename Node, int VEC>
-void launch_vec(const void* qkeys, const void* leaf, const void* keys,
-                const void* vals, const void* fev, const void* rev,
-                const void* fnv, const void* rnv, const void* free_bit,
-                void* out_value, void* out_found, void* out_consistent,
-                int64_t b, int64_t n_rows, int f, cudaStream_t stream) {
-  const int lg = group_log2_for(f, VEC);
-  const int64_t threads = b << lg;
-  const unsigned blocks =
-      static_cast<unsigned>((threads + LEAF_THREADS - 1) / LEAF_THREADS);
-  leaf_search_kernel<Ver, Node, VEC><<<blocks, LEAF_THREADS, 0, stream>>>(
-      static_cast<const int32_t*>(qkeys), static_cast<const int32_t*>(leaf),
-      static_cast<const int32_t*>(keys), static_cast<const int32_t*>(vals),
-      static_cast<const Ver*>(fev), static_cast<const Ver*>(rev),
-      static_cast<const Node*>(fnv), static_cast<const Node*>(rnv),
-      static_cast<const Node*>(free_bit), static_cast<int32_t*>(out_value),
-      static_cast<uint8_t*>(out_found), static_cast<uint8_t*>(out_consistent),
-      b, n_rows, f, lg);
 }
 
 template <typename Ver, typename Node>
@@ -209,23 +126,18 @@ int launch(const void* qkeys, const void* leaf, const void* keys,
            const void* fnv, const void* rnv, const void* free_bit,
            void* out_value, void* out_found, void* out_consistent, int64_t b,
            int64_t n_rows, int f, cudaStream_t stream) {
-  // 16-byte loads need F % 4 == 0 and 16-byte aligned row bases (then
-  // every key/value row is 16-byte and every uint8 version row 4-byte
-  // aligned)
-  const bool wide =
-      LEAF_VEC == 4 && f % 4 == 0 &&
-      (reinterpret_cast<uintptr_t>(keys) | reinterpret_cast<uintptr_t>(vals) |
-       reinterpret_cast<uintptr_t>(fev) | reinterpret_cast<uintptr_t>(rev)) %
-              16 == 0;
-  if (wide) {
-    launch_vec<Ver, Node, LEAF_VEC>(qkeys, leaf, keys, vals, fev, rev, fnv,
-                                    rnv, free_bit, out_value, out_found,
-                                    out_consistent, b, n_rows, f, stream);
-  } else {
-    launch_vec<Ver, Node, 1>(qkeys, leaf, keys, vals, fev, rev, fnv, rnv,
-                             free_bit, out_value, out_found, out_consistent,
-                             b, n_rows, f, stream);
-  }
+  const int lg = group_log2_for(f);
+  const int64_t threads = b << lg;
+  const unsigned blocks =
+      static_cast<unsigned>((threads + kThreads - 1) / kThreads);
+  leaf_search_kernel<Ver, Node><<<blocks, kThreads, 0, stream>>>(
+      static_cast<const int32_t*>(qkeys), static_cast<const int32_t*>(leaf),
+      static_cast<const int32_t*>(keys), static_cast<const int32_t*>(vals),
+      static_cast<const Ver*>(fev), static_cast<const Ver*>(rev),
+      static_cast<const Node*>(fnv), static_cast<const Node*>(rnv),
+      static_cast<const Node*>(free_bit), static_cast<int32_t*>(out_value),
+      static_cast<uint8_t*>(out_found), static_cast<uint8_t*>(out_consistent),
+      b, n_rows, f, lg);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -21,8 +21,8 @@
   a warp), one slot each; every load of the row (key, value, entry and
   node versions) is issued at once when the leaf id arrives, one memory
   round trip, and selected in registers; a ballot masked to the group
-  takes the first match.  Variants (16-byte loads, a warp per lane, a
-  dependent select, lanes per block) are timed by
+  takes the first match.  Variants (a warp per lane, a dependent select,
+  lanes per block) are edited copies of the source timed by
   ``scripts/leaf_search_variant_timing.py``.
 
 For CPU tensors the wrappers run the plain versions
@@ -65,7 +65,7 @@ def _lib() -> ctypes.CDLL:
 
 def _launch(qkeys, leaf, keys, vals, fev, rev, fnv, rnv, free, n_rows):
     """Allocate the outputs and launch the kernel on the current stream;
-    ``leaf`` None is the gathered-row entry."""
+    ``leaf`` None is the gathered-row entry, else the pool entry."""
     dev = qkeys.device
     b, f = qkeys.shape[0], keys.shape[1]
     value = torch.empty((b,), dtype=_I32, device=dev)
@@ -83,6 +83,8 @@ def _launch(qkeys, leaf, keys, vals, fev, rev, fnv, rnv, free, n_rows):
     if rc != 0:
         raise RuntimeError(f"leaf_search launch failed: CUDA error {rc}")
     leaf_search.launches += 1
+    if leaf is not None:
+        leaf_search.launches_pool += 1
     return value, found, consistent
 
 
@@ -158,10 +160,7 @@ def leaf_search_pool(qkeys, leaf, keys, vals, fev, rev, fnv, rnv, free_bit):
         raise ValueError("leaf_search_pool inputs must be contiguous")
     if _check_device(args) == "cpu":
         return leaf_search_pool_ref(*args)
-    out = _launch(qkeys, leaf, keys, vals, fev, rev, fnv, rnv, free_bit, n)
-    if qkeys.shape[0]:
-        leaf_search.launches_pool += 1
-    return out
+    return _launch(qkeys, leaf, keys, vals, fev, rev, fnv, rnv, free_bit, n)
 
 
 leaf_search.launches = 0

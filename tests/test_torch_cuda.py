@@ -92,8 +92,9 @@ def assert_same_bits(got, want):
 @pytest.mark.parametrize("b,f,offset", [(300, 6, 0), (64, 13, 0),
                                         (256, 16, 1), (100, 32, 2)])
 def test_leaf_search_kernel_unaligned_rows(b, f, offset):
-    """Rows the 16-byte loads cannot take (F % 4 != 0, or row arrays that
-    start off a 16-byte boundary) go through the scalar loads."""
+    """Odd fanouts (F not a power of two, so a lane's group of threads
+    has idle slots) and row arrays whose base lies off a 16-byte
+    boundary give the plain version's bits."""
     host = leaf_inputs(b + f, b, f)
     args = [torch.from_numpy(a).cuda() for a in host]
     for i in (1, 2, 3, 4):                       # keys, vals, fev, rev

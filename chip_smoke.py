@@ -27,12 +27,24 @@ Phases, in order; any failure raises and exits non-zero:
    pool, with the CUDA kernels each launches counted by the profiler);
 4. parity  — ``run_systems`` for ``sherman`` and ``fg+`` on the quick
    YCSB-A spec on the card and on the CPU: the RunResults must be equal;
+   then ``run_cluster_systems`` and ``run_open_loop_systems`` (Poisson,
+   0.5 Mops offered) with 32 client threads over the default 8 CSs: equal
+   RunResults and merged-trace digests wave for wave, and a recorded run
+   equal to the unrecorded one;
 5. deploy  — the paper-scale index (1B records, 80% full leaves, height 8)
    under the write-intensive mix: bulkload, run, netsim metrics, kernel
    launches, the probe's batch sizes and launches per probe, peak memory;
    then one more wave timed by layer on the host clock and one under
    ``torch.profiler`` (device busy and idle share, device time by layer);
-   and every acknowledged write read back;
+   then, on the same pool, the cluster phase (the paper's 8-CS fleet,
+   1,024 client threads, 65,536 ops in 64 rounds: wall-clock ops/s,
+   netsim metrics, conservation, cross-CS conflicts, per-CS hit rates,
+   the probes, peak memory, one round split by layer and one profiled)
+   and the open-loop phase (a fresh fleet, Poisson arrivals at half the
+   cluster phase's netsim Mops, 16,384 ops, a Recorder attached: sojourn
+   and queueing, the served waves' Chrome trace written, the recorded
+   spans tiling the simulated horizon); and every write acknowledged in
+   the three phases read back;
 6. lm-parity — reduced smollm-135m, granite-3-8b and rwkv6-1.6b in f32:
    the same weights on the card (kernels) and on the CPU (plain
    versions) give the same prefill, decode and forward logits;
@@ -77,9 +89,11 @@ KERNEL_SHAPES = [(256, 8), (512, 16), (128, 32), (256, 64),   # kernel test
                  (512, 16), (1024, 16), (1000, 16)]           # main path
 MAIN_PATH_SHAPE = (512, 16)     # lookup bucket at batch 1024, 50% reads
 # the pool entry's checks (F, B): the kernel test's fanouts, the main
-# path's, a ragged batch and one lane, on 4096-row torn pools
-POOL_SHAPES = [(8, 256), (16, 512), (32, 128), (64, 256), (16, 300),
-               (16, 1)]
+# path's, the cluster phase's (one 64-lane probe a CS a round), the open
+# loop's smaller buckets, a ragged batch and one lane, on 4096-row torn
+# pools
+POOL_SHAPES = [(8, 256), (16, 512), (32, 128), (64, 256), (16, 64),
+               (16, 32), (16, 16), (16, 300), (16, 1)]
 # its timing: a synthetic pool of 2^25 rows (5.5 GB at F = 16, far beyond
 # the 50 MB L2), a CUDA graph of 100 calls, each on fresh random rows
 LEAF_POOL_ROWS = 1 << 25
@@ -484,6 +498,11 @@ def phase_kernel(torch, leaf_search, leaf_search_ref, leaf_search_pool,
                 gather_composition_kernels_per_call=old_per_call)
 
 
+#: the cluster phase's ops (64 rounds of 1,024 client threads) and the
+#: open-loop phase's, both on deploy-1B's pool
+CLUSTER_OPS = 65_536
+OPEN_LOOP_OPS = 16_384
+
 #: the layers of one index wave, each a function the wave calls
 #: (label, module, attribute); a layer's own time leaves out the layers
 #: it calls.  "chase and sync" is cached_lookup's own time: the B-link
@@ -505,14 +524,28 @@ HOST_SYNCS = ("cpu", "item", "__bool__", "__int__")
 HOST_LABEL = "host copies and syncs"
 
 
+#: a cluster round's layers: the wave's, plus the scheduler's own names
+#: for the repair drain (bound at import), the merged replay and the
+#: per-CS trace builders
+CLUSTER_LAYERS = WAVE_LAYERS + [
+    ("repair drain", "repro_torch.cluster.sched", "run_repair_drain"),
+    ("verb replay", "repro_torch.core.netsim", "price_merged_phase"),
+    ("trace build", "repro_torch.core.netsim", "transformed_write_trace"),
+    ("trace build", "repro_torch.core.netsim", "read_trace_from_stats"),
+    ("trace build", "repro_torch.core.verbs", "maintenance_trace"),
+    ("cache fill", "repro_torch.core.cache", "fill_image"),
+]
+
+
 class WaveClock:
     """Time the index's layers on the host clock while it is entered, by
-    wrapping each function of ``WAVE_LAYERS`` and the ``HOST_SYNCS``
-    methods; with ``ranges``, each call also opens a ``torch.profiler``
-    range named by its layer."""
+    wrapping each function of ``layers`` (default ``WAVE_LAYERS``) and
+    the ``HOST_SYNCS`` methods; with ``ranges``, each call also opens a
+    ``torch.profiler`` range named by its layer."""
 
-    def __init__(self, torch, ranges: bool = False):
+    def __init__(self, torch, ranges: bool = False, layers=None):
         self.torch, self.ranges = torch, ranges
+        self.layers = WAVE_LAYERS if layers is None else layers
         self.own: dict[str, float] = {}
         self.calls: dict[str, int] = {}
         self._stack: list[float] = []
@@ -541,7 +574,7 @@ class WaveClock:
 
     def __enter__(self):
         import importlib
-        for label, mod, attr in WAVE_LAYERS:
+        for label, mod, attr in self.layers:
             m = importlib.import_module(mod)
             orig = getattr(m, attr)
             setattr(m, attr, self._wrap(label, orig))
@@ -596,41 +629,100 @@ def device_ms_by_layer(prof, labels) -> tuple[float, dict, dict]:
     return busy, ms, kernels
 
 
-def wave_split(torch, engine, idx, spec, keyspace: int) -> None:
-    """Two more waves of ``spec`` on ``idx`` through ``run_workload``: one
-    timed by layer on the host clock, one under ``torch.profiler`` (device
-    busy time and idle share, device time and kernels by layer)."""
+def layer_split(torch, tag: str, what: str, run, layers,
+                probes: int) -> None:
+    """Run ``run(seed)`` twice more: once timed by layer on the host
+    clock, once under ``torch.profiler`` (device busy time and idle
+    share, device time and kernels by layer).  ``what`` names one run
+    ("wave", "round"); the profiled run's probe must launch ``probes``
+    kernels, one a lookup_leaves call."""
     from torch.profiler import ProfilerActivity, profile
-    one = dataclasses.replace(spec, ops=spec.batch)
-    labels = [lb for lb, _, _ in WAVE_LAYERS] + [HOST_LABEL]
+    labels = [lb for lb, _, _ in layers] + [HOST_LABEL]
     labels = list(dict.fromkeys(labels))
-    with WaveClock(torch) as clock:
+    with WaveClock(torch, layers=layers) as clock:
         t0 = time.perf_counter()
-        engine.run_workload(idx, one, seed=2, keyspace=keyspace)
+        n_ops = run(2)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     parts = {lb: clock.own.get(lb, 0.0) * 1e3 for lb in labels}
     parts["other (keys, padding, glue)"] = wall * 1e3 - sum(parts.values())
-    log(f"deploy  wave split (host clock, {one.batch} ops): wall "
+    log(f"{tag:<8}{what} split (host clock, {n_ops} ops): wall "
         f"{wall * 1e3:.3f} ms; " + "; ".join(
             f"{lb} {v:.3f} ms ({clock.calls.get(lb, 0)} calls)"
             for lb, v in parts.items()))
-    with WaveClock(torch, ranges=True):
+    with WaveClock(torch, ranges=True, layers=layers):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            engine.run_workload(idx, one, seed=3, keyspace=keyspace)
+            n_ops = run(3)
             torch.cuda.synchronize()
             wall_p = time.perf_counter() - t0
     busy, ms, kernels = device_ms_by_layer(prof, labels)
-    log(f"deploy  wave profile (torch.profiler, {one.batch} ops): wall "
+    log(f"{tag:<8}{what} profile (torch.profiler, {n_ops} ops): wall "
         f"{wall_p * 1e3:.3f} ms, device busy {busy:.3f} ms, idle share "
         f"{1 - busy / (wall_p * 1e3):.3f}; device ms (kernels) by layer: "
         + "; ".join(f"{lb} {ms[lb]:.3f} ({kernels.get(lb, 0)})"
                     for lb in sorted(ms, key=lambda x: -ms[x])))
-    if kernels.get("probe") != 1:
-        raise AssertionError(f"the profiled wave's probe launched "
-                             f"{kernels.get('probe')} kernels")
+    if kernels.get("probe") != probes:
+        raise AssertionError(f"the profiled {what}'s probes launched "
+                             f"{kernels.get('probe')} kernels, not "
+                             f"{probes}")
+
+
+def wave_split(torch, engine, idx, spec, keyspace: int) -> None:
+    """Two more waves of ``spec`` on ``idx`` through ``run_workload``,
+    split by layer (:func:`layer_split`)."""
+    one = dataclasses.replace(spec, ops=spec.batch)
+
+    def run(seed):
+        engine.run_workload(idx, one, seed=seed, keyspace=keyspace)
+        return one.batch
+    layer_split(torch, "deploy", "wave", run, WAVE_LAYERS, probes=1)
+
+
+class ProbeCount:
+    """While entered, count the probe's calls (``lookup_leaves``) by
+    (batch size, leaf-search kernel launches a call); ``launches`` and
+    ``launches_pool`` are the kernel's counts over the block, from 0."""
+
+    def __init__(self, leaf_search):
+        self.leaf_search = leaf_search
+        self.probes: dict[tuple[int, int], int] = {}
+        self.launches = self.launches_pool = 0
+
+    def __enter__(self):
+        from repro_torch.kernels.leaf_search import ops as leaf_ops
+        ls, probe, probes = self.leaf_search, leaf_ops.lookup_leaves, \
+            self.probes
+
+        def counting_probe(cfg, st, leaf, qkeys):
+            n0 = ls.launches
+            out = probe(cfg, st, leaf, qkeys)
+            key = (int(leaf.shape[0]), ls.launches - n0)
+            probes[key] = probes.get(key, 0) + 1
+            return out
+        self._undo = (leaf_ops, probe)
+        leaf_ops.lookup_leaves = counting_probe
+        ls.launches = ls.launches_pool = 0
+        return self
+
+    def __exit__(self, *exc):
+        leaf_ops, probe = self._undo
+        leaf_ops.lookup_leaves = probe
+        self.launches = self.leaf_search.launches
+        self.launches_pool = self.leaf_search.launches_pool
+
+    def line(self) -> str:
+        return ", ".join(f"{k}: {v}" for k, v in sorted(self.probes.items()))
+
+    def check(self, what: str) -> None:
+        """Raise unless the kernel launched, every launch was the pool
+        entry's and every probe launched it once."""
+        if self.launches <= 0 or self.launches_pool != self.launches or \
+                any(n != 1 for _, n in self.probes):
+            raise AssertionError(f"{what}: launches={self.launches} (pool "
+                                 f"entry {self.launches_pool}), probes "
+                                 f"{self.probes}")
 
 
 def phase_parity(torch, leaf_search, engine, get_preset):
@@ -657,10 +749,74 @@ def phase_parity(torch, leaf_search, engine, get_preset):
     log(f"parity  GPU run {t1 - t0:.3f} s, CPU run {t2 - t1:.3f} s, "
         f"leaf_search launches {launches}; {_peak(torch)}")
 
+    # the cluster plane, closed and open loop, over the default 8 CSs
+    quick = get_preset("ycsb-a", load_records=8_000, ops=1_024, batch=512)
+    poisson = quick.replace(arrival="poisson", offered_mops=0.5)
+    for what, fn, sp in (("cluster", engine.run_cluster_systems, quick),
+                         ("open-loop", engine.run_open_loop_systems,
+                          poisson)):
+        leaf_search.launches = 0
+        t0 = time.perf_counter()
+        gpu, gpu_logs = fleet_runs(fn, sp, "cuda")
+        t1 = time.perf_counter()
+        launches = leaf_search.launches
+        cpu, cpu_logs = fleet_runs(fn, sp, "cpu")
+        t2 = time.perf_counter()
+        for g, c, lg, lc in zip(gpu, cpu, gpu_logs, cpu_logs):
+            dg, dc = g.to_dict(), c.to_dict()
+            diff = {k: (dg[k], dc[k]) for k in dg if dg[k] != dc[k]}
+            if diff:
+                raise AssertionError(f"{what} {g.system}: GPU != CPU "
+                                     f"RunResult: {diff}")
+            if lg != lc:
+                wave = next((i for i, (x, y) in enumerate(zip(lg, lc))
+                             if x != y), min(len(lg), len(lc)))
+                raise AssertionError(f"{what} {g.system}: trace digests "
+                                     f"differ from wave {wave}")
+            log(f"parity  {what} {g.system}: GPU RunResult == CPU "
+                f"RunResult and {len(lg)} merged-trace digests equal wave "
+                f"for wave (mops {g.mops}, p99 {g.p99_us} us, "
+                f"{g.rounds} rounds)")
+        # recording is a pure observation
+        rec, _ = fleet_runs(fn, sp, "cuda", systems=("sherman",),
+                            recorders={})
+        dg, dr = gpu[0].to_dict(), rec[0].to_dict()
+        dg.pop("obs"), dr.pop("obs")
+        if dg != dr or not rec[0].obs.get("spans_ok"):
+            raise AssertionError(f"{what}: a recorded run differs from "
+                                 f"the unrecorded one")
+        if launches <= 0:
+            raise AssertionError(f"the GPU {what} run never launched "
+                                 f"leaf_search")
+        log(f"parity  {what}: recorded run == unrecorded run "
+            f"({rec[0].obs['segments']} segments); GPU run "
+            f"{t1 - t0:.3f} s, CPU run {t2 - t1:.3f} s, leaf_search "
+            f"launches {launches}")
+
+
+def fleet_runs(fn, spec, device: str, systems=("sherman", "fg+"), **kw):
+    """``fn`` (``run_cluster_systems`` or ``run_open_loop_systems``) with
+    32 client threads on ``device``, every fleet logging its merged-trace
+    digests; returns the RunResults and the fleets' digest logs."""
+    import repro_torch.cluster as cluster_pkg
+    build = cluster_pkg.build_cluster
+    fleets = []
+
+    def logging_build(*args, **kwargs):
+        fleet = build(*args, **kwargs)
+        fleet.record_traces()
+        fleets.append(fleet)
+        return fleet
+    cluster_pkg.build_cluster = logging_build
+    try:
+        res = fn(spec, systems, n_clients=32, device=device, **kw)
+    finally:
+        cluster_pkg.build_cluster = build
+    return res, [f.trace_log for f in fleets]
+
 
 def phase_deploy(torch, leaf_search, records: int, nodes_per_ms: int):
     from repro_torch.core import SHERMAN, ShermanIndex, TreeConfig
-    from repro_torch.core.ops import lookup_batch
     from repro_torch.workloads import engine, get_preset
 
     cfg = TreeConfig(n_ms=4, nodes_per_ms=nodes_per_ms, fanout=16,
@@ -693,7 +849,8 @@ def phase_deploy(torch, leaf_search, records: int, nodes_per_ms: int):
         f"height {int(idx.state.height)}, live rows "
         f"{int(idx.state.alloc_rr)}")
 
-    acked: dict[int, int] = {}
+    # every acknowledged write, in order (None: deleted)
+    acked: dict[int, int | None] = {}
     insert = idx.insert
 
     def recording_insert(k, v):
@@ -703,28 +860,13 @@ def phase_deploy(torch, leaf_search, records: int, nodes_per_ms: int):
             acked[kk] = vv
     idx.insert = recording_insert
 
-    # the probe's batch sizes and kernel launches, per lookup_leaves call
-    from repro_torch.kernels.leaf_search import ops as leaf_ops
-    probe = leaf_ops.lookup_leaves
-    probes: dict[tuple[int, int], int] = {}
-
-    def counting_probe(cfg, st, leaf, qkeys):
-        n0 = leaf_search.launches
-        out = probe(cfg, st, leaf, qkeys)
-        key = (int(leaf.shape[0]), leaf_search.launches - n0)
-        probes[key] = probes.get(key, 0) + 1
-        return out
-    leaf_ops.lookup_leaves = counting_probe
-
-    leaf_search.launches = leaf_search.launches_pool = 0
-    t4 = time.perf_counter()
-    res = engine.run_workload(idx, spec, keyspace=keyspace,
-                              system="sherman")
-    torch.cuda.synchronize()
-    t5 = time.perf_counter()
-    launches = leaf_search.launches
-    pool_launches = leaf_search.launches_pool
-    leaf_ops.lookup_leaves = probe
+    with ProbeCount(leaf_search) as pc:
+        t4 = time.perf_counter()
+        res = engine.run_workload(idx, spec, keyspace=keyspace,
+                                  system="sherman")
+        torch.cuda.synchronize()
+        t5 = time.perf_counter()
+    launches, pool_launches = pc.launches, pc.launches_pool
     run_s = t5 - t4
     peak = torch.cuda.max_memory_allocated()
     waves = -(-spec.ops // spec.batch)
@@ -734,41 +876,229 @@ def phase_deploy(torch, leaf_search, records: int, nodes_per_ms: int):
         f"leaf_search launches {launches} (pool entry {pool_launches}); "
         f"max_memory_allocated {peak}")
     log("deploy  probes (lookup_leaves calls) by (batch size, kernel "
-        "launches a call): " + ", ".join(
-            f"{k}: {v}" for k, v in sorted(probes.items())))
+        "launches a call): " + pc.line())
     for name in ("mops", "p50_us", "p99_us"):
         v = getattr(res, name)
         if not (math.isfinite(v) and v > 0):
             raise AssertionError(f"deploy: {name}={v}")
-    if res.n_ops != spec.ops or launches <= 0 or pool_launches != launches \
-            or any(n != 1 for _, n in probes):
-        raise AssertionError(f"deploy: n_ops={res.n_ops} "
-                             f"launches={launches} (pool entry "
-                             f"{pool_launches}), probes {probes}")
+    if res.n_ops != spec.ops:
+        raise AssertionError(f"deploy: n_ops={res.n_ops}")
+    pc.check("deploy")
     wave_split(torch, engine, idx, spec, keyspace)
+    return dict(cfg=cfg, state=idx.state, spec=spec, keyspace=keyspace,
+                acked=acked, probe_keys=probe_keys, probe_vals=probe_vals,
+                launches=launches)
 
-    # -- the guarantee: every acknowledged write reads back, and the
-    # untouched loaded records keep their load values --
+
+def read_back(torch, dep: dict, phases: str) -> None:
+    """The guarantee: every write acknowledged on the deployment's pool
+    (``dep["acked"]``, by the phases named in ``phases``) reads back from
+    ``dep["state"]``, and the untouched loaded records keep their load
+    values."""
+    from repro_torch.core.ops import lookup_batch
+    cfg, state, acked = dep["cfg"], dep["state"], dep["acked"]
+    probe_keys, probe_vals = dep["probe_keys"], dep["probe_vals"]
     untouched = ~np.isin(probe_keys, np.fromiter(acked, np.int64))
     want = {**dict(zip(probe_keys[untouched].tolist(),
                        probe_vals[untouched].tolist())), **acked}
     k_all = np.fromiter(want, np.int64).astype(np.int32)
-    v_all = np.fromiter(want.values(), np.int64).astype(np.int32)
+    present = np.fromiter((v is not None for v in want.values()), bool)
+    v_all = np.fromiter((-1 if v is None else v for v in want.values()),
+                        np.int64).astype(np.int32)
     t6 = time.perf_counter()
     for lo in range(0, k_all.size, 1 << 18):
-        q = torch.from_numpy(k_all[lo:lo + (1 << 18)]).cuda()
-        r = lookup_batch(cfg, idx.state, q)
+        sl = slice(lo, lo + (1 << 18))
+        r = lookup_batch(cfg, state, torch.from_numpy(k_all[sl]).cuda())
         found = r.found.cpu().numpy()
         got = r.value.cpu().numpy()
-        if not found.all() or not (got == v_all[lo:lo + q.numel()]).all():
-            bad = np.nonzero(~found | (got != v_all[lo:lo + q.numel()]))[0]
-            raise AssertionError(f"deploy: {bad.size} keys read back wrong, "
-                                 f"first {k_all[lo + bad[0]]}")
+        bad = (found != present[sl]) | (found & (got != v_all[sl]))
+        if bad.any():
+            first = np.nonzero(bad)[0][0]
+            raise AssertionError(f"deploy: {int(bad.sum())} keys read back "
+                                 f"wrong, first {k_all[lo + first]}")
     t7 = time.perf_counter()
-    log(f"deploy  read back {len(acked)} acknowledged writes and "
+    log(f"deploy  read back {len(acked)} acknowledged writes "
+        f"({int((~present).sum())} of them deletes) of the {phases} and "
         f"{int(untouched.sum())} untouched loaded records exactly "
         f"({t7 - t6:.3f} s)")
-    return launches
+
+
+def record_cluster_writes(cluster, acked: dict) -> None:
+    """Log every write ``cluster`` acknowledges into ``acked``, in lane
+    order: a stacked wave's lanes follow CS order and its last lane wins,
+    so a later CS's value for a key overwrites an earlier one's."""
+    write_wave = cluster.write_wave
+
+    def recording(keys_by_cs, vals_by_cs=None, is_delete=False, **kw):
+        write_wave(keys_by_cs, vals_by_cs, is_delete, **kw)
+        for i, k in enumerate(keys_by_cs):
+            if k is None or not len(k):
+                continue
+            k = np.asarray(k, np.int32).astype(np.int64).tolist()
+            if is_delete:
+                acked.update(dict.fromkeys(k))
+                continue
+            v = vals_by_cs[i] if vals_by_cs is not None else None
+            v = np.zeros(len(k), np.int32) if v is None else \
+                np.asarray(v, np.int32)
+            acked.update(zip(k, v.astype(np.int64).tolist()))
+    cluster.write_wave = recording
+
+
+def phase_cluster(torch, leaf_search, cfg, state, spec, keyspace: int,
+                  acked: dict):
+    """The paper's 8-CS fleet over deploy-1B's pool: 1,024 client threads
+    (128 lanes a CS a round), ``CLUSTER_OPS`` of the write-intensive mix in
+    scheduler rounds, every CS with its own 64 MB cache image."""
+    from repro_torch.cluster import Cluster, run_cluster
+    from repro_torch.core import SHERMAN
+    from repro_torch.workloads import engine
+    torch.cuda.reset_peak_memory_stats()
+    cl = Cluster(cfg, state, features=SHERMAN, n_clients=1024)
+    record_cluster_writes(cl, acked)
+    sim_by_kind = sim_time_by_kind(cl)
+    ops = CLUSTER_OPS
+    cspec = dataclasses.replace(spec, ops=ops)
+    rounds = -(-ops // cl.n_clients)
+    log(f"cluster {cl.n_cs} CSs x {cl.per_cs} lanes = {cl.n_clients} "
+        f"client threads a round; {cspec.name}, {ops} ops, {rounds} "
+        f"rounds, keyspace 2^30, on deploy-1B's pool")
+    with ProbeCount(leaf_search) as pc:
+        t0 = time.perf_counter()
+        done, op_counts = run_cluster(cl, cspec, keyspace=keyspace)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    res = engine.cluster_result(cl, cspec, done, op_counts,
+                                system="sherman")
+    log(f"cluster run {run_s:.3f} s, {done / run_s:.1f} ops/s wall-clock "
+        f"on the card ({run_s / rounds * 1e3:.3f} ms a round); netsim "
+        f"mops {res.mops} p50_us {res.p50_us} p99_us {res.p99_us}; "
+        f"conservation_ok {res.conservation_ok}; cross-CS conflicts "
+        f"{cl.counters['cross_cs_conflicts']}; stacked write phases "
+        f"{cl.counters['stacked_phases']}; leaf_search launches "
+        f"{pc.launches} (pool entry {pc.launches_pool}); "
+        f"{_peak(torch)}")
+    log("cluster per-CS cache hit rates: " + ", ".join(
+        f"CS{r['cs']} {r['cache_hit_rate']:.4f}" for r in res.per_cs)
+        + "; " + maintenance_line(cl))
+    total = sum(sim_by_kind.values())
+    log("cluster netsim simulated time by wave kind: " + ", ".join(
+        f"{k} {v} s ({v / total:.4f})" for k, v in sim_by_kind.items()))
+    log("cluster probes (lookup_leaves calls) by (batch size, kernel "
+        "launches a call): " + pc.line())
+    if not res.conservation_ok or done != ops or res.n_ops != ops:
+        raise AssertionError(f"cluster: conservation_ok "
+                             f"{res.conservation_ok}, done {done} of {ops}")
+    for name in ("mops", "p50_us", "p99_us"):
+        v = getattr(res, name)
+        if not (math.isfinite(v) and v > 0):
+            raise AssertionError(f"cluster: {name}={v}")
+    pc.check("cluster")
+
+    one = dataclasses.replace(spec, ops=cl.n_clients)
+    with ProbeCount(leaf_search) as one_round:
+        run_cluster(cl, one, seed=4, keyspace=keyspace)   # warm, counted
+
+    def run(seed):
+        run_cluster(cl, one, seed=seed, keyspace=keyspace)
+        return one.ops
+    layer_split(torch, "cluster", "round", run, CLUSTER_LAYERS,
+                probes=sum(one_round.probes.values()))
+    return cl.state, pc.launches, res.mops
+
+
+def sim_time_by_kind(cluster) -> dict:
+    """Sum the makespan of the fleet's merged waves by kind (read, write,
+    maint) from now on; closed loop, these sum to ``sim_time_s``."""
+    by_kind: dict[str, float] = {}
+    price = cluster._simulate_merged
+
+    def summing(tagged, kind, arrivals=None):
+        sim, kept = price(tagged, kind, arrivals)
+        if sim is not None:
+            by_kind[kind] = by_kind.get(kind, 0.0) + sim["makespan_s"]
+        return sim, kept
+    cluster._simulate_merged = summing
+    return by_kind
+
+
+def maintenance_line(cluster) -> str:
+    """The fleet's cache maintenance, summed over its CSs: image fills
+    and version sweeps, and the reads each costs."""
+    total = {k: sum(getattr(n.cache.counters, k) for n in cluster.nodes)
+             for k in ("fills", "fill_reads", "sync_sweeps", "sync_reads")}
+    return (f"cache maintenance {total['fills']} fills ("
+            f"{total['fill_reads']} node reads), {total['sync_sweeps']} "
+            f"version sweeps ({total['sync_reads']} version reads)")
+
+
+def phase_open_loop(torch, leaf_search, cfg, state, spec, keyspace: int,
+                    acked: dict, rate_mops: float):
+    """A fresh fleet over the same pool, driven open loop: Poisson
+    arrivals at ``rate_mops`` offered, a Recorder attached, its spans
+    checked against the absolute horizon and the Chrome trace of its
+    served waves written.  The trace leaves out the fleet's cache
+    maintenance (image fills and round sweeps: ~224k reads a CS each at
+    this size, millions of verbs, ~214 bytes of JSON a verb)."""
+    import tempfile
+    from repro_torch.cluster import Cluster
+    from repro_torch.core import SHERMAN
+    from repro_torch.obs import Recorder, span_accounting, \
+        write_chrome_trace
+    from repro_torch.serve import run_open_loop
+    from repro_torch.workloads import engine
+    cl = Cluster(cfg, state, features=SHERMAN, n_clients=1024)
+    rec = Recorder()
+    cl.recorder = rec
+    record_cluster_writes(cl, acked)
+    ops = OPEN_LOOP_OPS
+    ospec = dataclasses.replace(spec, ops=ops, arrival="poisson",
+                                offered_mops=rate_mops)
+    log(f"open    Poisson arrivals at {rate_mops} Mops offered (half the "
+        f"cluster phase's netsim mops), {ops} ops, {cl.n_clients} client "
+        f"threads, recorder attached")
+    with ProbeCount(leaf_search) as pc:
+        t0 = time.perf_counter()
+        done, op_counts, info = run_open_loop(cl, ospec, keyspace=keyspace)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    res = engine.open_loop_result(cl, ospec, done, op_counts, info,
+                                  system="sherman")
+    spans = span_accounting(rec)
+    served = Recorder()
+    served.segments = [sg for sg in rec.segments if sg.label != "maint"]
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = write_chrome_trace(served, os.path.join(tmp, "open.json"))
+        size = os.path.getsize(path)
+        with open(path) as f:
+            events = len(json.load(f)["traceEvents"])
+    horizon = cl.counters["sim_time_s"]
+    log(f"open    run {run_s:.3f} s, {done / run_s:.1f} ops/s wall-clock "
+        f"on the card; {info['waves']} waves; sojourn p50_us {res.p50_us} "
+        f"p99_us {res.p99_us}; queue_p99_us {res.queue_p99_us}; "
+        f"sustained_frac {res.sustained_frac}; netsim mops {res.mops}; "
+        f"conservation_ok {res.conservation_ok}; recorder "
+        f"{rec.n_segments} segments, {rec.n_verbs} verbs "
+        f"({rec.n_verbs - served.n_verbs} of them cache maintenance); "
+        f"chrome trace of the {served.n_segments} served-wave segments "
+        f"{events} events, {size} bytes, "
+        f"{time.perf_counter() - t1:.3f} s; spans ok {spans['ok']}, horizon "
+        f"{spans['horizon_s']} s of {horizon} s simulated; leaf_search "
+        f"launches {pc.launches} (pool entry {pc.launches_pool})")
+    log("open    probes (lookup_leaves calls) by (batch size, kernel "
+        "launches a call): " + pc.line() + "; " + maintenance_line(cl))
+    if done != ops or not res.conservation_ok or not spans["ok"] or \
+            not math.isclose(spans["horizon_s"], horizon, rel_tol=1e-9) \
+            or not all(sg.clocked for sg in rec.segments) or \
+            not 0 < res.sustained_frac <= 1:
+        raise AssertionError(f"open loop: done {done} of {ops}, "
+                             f"conservation_ok {res.conservation_ok}, "
+                             f"spans {spans['ok']} horizon "
+                             f"{spans['horizon_s']} vs {horizon}, "
+                             f"sustained {res.sustained_frac}")
+    pc.check("open loop")
+    return cl.state, pc.launches
 
 
 def phase_flash(torch, flash_attention, attention_ref, route_of):
@@ -1181,8 +1511,20 @@ def main(argv=None) -> int:
     # 5. the deployment phase
     # the pool scales with the records: 25,165,824 rows per MS at 1B
     npm = 25_165_824 * args.records // 1_000_000_000
-    launches = {"leaf_search": phase_deploy(torch, leaf_search, args.records,
-                                            npm)}
+    dep = phase_deploy(torch, leaf_search, args.records, npm)
+    # the cluster and open-loop phases on the same pool, then the read-back
+    # of all three phases' acknowledged writes
+    cfg, spec, acked = dep["cfg"], dep["spec"], dep["acked"]
+    dep["state"], cluster_launches, mops = phase_cluster(
+        torch, leaf_search, cfg, dep["state"], spec, dep["keyspace"], acked)
+    dep["state"], open_launches = phase_open_loop(
+        torch, leaf_search, cfg, dep["state"], spec, dep["keyspace"], acked,
+        mops / 2)
+    read_back(torch, dep, "deploy, cluster and open-loop phases")
+    leaf_paths = dict(deploy=dep["launches"], cluster=cluster_launches,
+                      open_loop=open_launches)
+    launches = {"leaf_search": dep["launches"]}
+    del dep, acked
     gc.collect()                # the index's pool, held by a cycle
     torch.cuda.empty_cache()
     log(f"deploy  freed: memory_allocated {torch.cuda.memory_allocated()}")
@@ -1204,6 +1546,7 @@ def main(argv=None) -> int:
                     replaces=replaces[name], launches=launches[name],
                     **numbers[name])
                for name in names]
+    kernels[0]["launches_by_path"] = leaf_paths
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

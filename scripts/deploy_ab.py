@@ -32,8 +32,11 @@ sys.path[:0] = [os.getcwd(), os.path.join(os.getcwd(), "src")]
 import chip_smoke
 from repro_torch.kernels.leaf_search.kernel import leaf_search
 records = int(sys.argv[1])
-chip_smoke.phase_deploy(torch, leaf_search, records,
-                        25_165_824 * records // 1_000_000_000)
+dep = chip_smoke.phase_deploy(torch, leaf_search, records,
+                              25_165_824 * records // 1_000_000_000)
+# a checkout without read_back reads back inside phase_deploy
+if hasattr(chip_smoke, "read_back"):
+    chip_smoke.read_back(torch, dep, "deploy phase")
 """
 _OPS = re.compile(r"([0-9.]+) ops/s wall-clock")
 

@@ -146,6 +146,9 @@ class ShermanIndex:
         self.write_bytes: list[np.ndarray] = []
         self._repair = RepairQueue.empty(REPAIR_CAP, self.device)
         self._repair_backlog = 0        # host-side mirror, no device sync
+        # opt-in observability plane: attach a repro_torch.obs Recorder here
+        # and every priced phase captures its per-verb timeline
+        self.recorder = None
 
     # -- constructors --------------------------------------------------
     @classmethod
@@ -178,6 +181,16 @@ class ShermanIndex:
         return torch.remainder(torch.div(lane, per, rounding_mode="floor"),
                                self.cfg.n_cs)
 
+    def _rec(self, phase: str):
+        """The phase's capture target: label it and place it at the
+        accumulated sim time (each closed-loop phase is its own relative
+        timeline; the cursor makes the captured segments tile)."""
+        r = self.recorder
+        if r is not None:
+            r.set_phase(phase)
+            r.sync_cursor(self.counters["sim_time_s"])
+        return r
+
     def _price_cache_maintenance(self):
         """Charge the image fills / version sweeps the cache performed
         since the last drain by replaying their MAINT/SYNC verbs."""
@@ -186,7 +199,8 @@ class ShermanIndex:
             return
         sim = netsim.price_maintenance(node_rd, small_rd, self.features,
                                        self.net, self.cfg,
-                                       rows_ms=self.cache.rows_ms())
+                                       rows_ms=self.cache.rows_ms(),
+                                       recorder=self._rec("maint"))
         self._charge(sim)
 
     def _charge(self, priced: dict):
@@ -201,7 +215,8 @@ class ShermanIndex:
     def _price_write(self, stats: write.WriteStats, active, hits):
         sd = write_stats_dict(stats, active, hits, int(self.state.height))
         priced = netsim.price_write_phase(sd, self.features, self.net,
-                                          self.cfg)
+                                          self.cfg,
+                                          recorder=self._rec("write"))
         self.latencies_write.append(priced["latency_s"])
         self.doorbells_write.append(priced["lane_doorbells"])
         self.write_bytes.append(priced["write_bytes"])
@@ -311,7 +326,8 @@ class ShermanIndex:
                       leaf=res.leaf.cpu().numpy(),
                       height=int(self.state.height))
         priced = netsim.price_read_phase(sd, self.features, self.net,
-                                         self.cfg)
+                                         self.cfg,
+                                         recorder=self._rec("read"))
         self.latencies_read.append(priced["latency_s"])
         c["read_ops"] += n
         c["lookup_ops"] += n
@@ -345,7 +361,8 @@ class ShermanIndex:
                  retries=np.maximum(n_leaves - 1, 0),  # empty scans read 0
                  leaf=res.start_leaf.cpu().numpy(), scan=True,
                  height=int(self.state.height)),
-            self.features, self.net, self.cfg)
+            self.features, self.net, self.cfg,
+            recorder=self._rec("scan"))
         self.latencies_read.append(priced["latency_s"])
         self.counters["read_ops"] += n
         self._charge(priced)

@@ -225,16 +225,20 @@ class IndexCache:
 
     The single-frontend ``ShermanIndex`` holds one instance standing in
     for every CS's identical replica (modeled footprint is
-    ``capacity_bytes`` *per CS*).  ``sync_every`` is the number of
-    split-bearing write phases between version sweeps; a root split
-    always forces a refresh on the next read.  The image lives
+    ``capacity_bytes`` *per CS*); in the cluster plane each
+    ``ClusterNode`` owns its **own** instance with its own staleness
+    trajectory (DESIGN.md §11).  ``sync_every`` is the number of
+    split-bearing write phases between version sweeps; ``sync_rounds``
+    adds a scheduler-round-periodic sweep (see :meth:`end_round`); a
+    root split always forces a refresh on the next read.  The image lives
     on the state's device; the host keeps copies of its small per-row
     columns (rows, valid, fnv, level, first separator).
     """
 
     def __init__(self, cfg: TreeConfig, capacity_bytes: int = 64 << 20,
                  levels: Optional[int] = None, chase_hops: int = 4,
-                 sync_every: int = 8, refresh_frac: float = 0.125):
+                 sync_every: int = 8, refresh_frac: float = 0.125,
+                 sync_rounds: int = 0):
         self.cfg = cfg
         self.capacity_bytes = int(capacity_bytes)
         self.capacity_rows = max(1, min(
@@ -243,10 +247,12 @@ class IndexCache:
         self.chase_hops = int(chase_hops)
         self.sync_every = int(sync_every)
         self.refresh_frac = float(refresh_frac)
+        self.sync_rounds = int(sync_rounds)
         self.counters = CacheCounters()
         self._image: Optional[dict] = None
         self._set_host_columns(None)
         self._splitty_phases = 0
+        self._rounds_since_sync = 0
         self._needs_refresh = True
         self._maint_taken = (0, 0)      # (fill_reads, sync_reads) drained
 
@@ -356,6 +362,25 @@ class IndexCache:
         self.counters.sync_reads += int(self._filled.sum())
         self._splitty_phases = 0
         return n
+
+    def end_round(self, st: TreeState) -> None:
+        """Cluster-plane coherence tick: one scheduler round elapsed.
+
+        In the multi-CS plane a compute server is *not* fed remote CSs'
+        split outputs (``note_splits`` fires only for its own writes); it
+        learns of remote structural changes lazily — stale detection on
+        its own reads — or through this periodic sweep, one version sync
+        every ``sync_rounds`` rounds (0 disables).  The sweep's wire cost
+        accrues like any other sync (``counters.sync_reads``) and is
+        drained by ``take_maintenance``.
+        """
+        if not (self.enabled and self.sync_rounds and
+                self._image is not None):
+            return
+        self._rounds_since_sync += 1
+        if self._rounds_since_sync >= self.sync_rounds:
+            self._rounds_since_sync = 0
+            self.sync_versions(st)
 
     def note_splits(self, n_leaf: int, n_internal: int, n_root: int,
                     st: TreeState) -> None:

@@ -9,8 +9,13 @@ JSON-serializable :class:`RunResult` — see
 """
 from repro_torch.workloads.engine import (DEFAULT_CFG, KEYSPACE, SYSTEMS,
                                           RunResult, build_index,
-                                          live_records, run_systems,
-                                          run_workload, write_json)
+                                          live_records,
+                                          run_cluster_systems,
+                                          run_cluster_workload,
+                                          run_open_loop_systems,
+                                          run_open_loop_workload,
+                                          run_systems, run_workload,
+                                          write_json)
 from repro_torch.workloads.keygen import (draw_keys, latest_ranks,
                                           scramble, zipf_keys, zipf_ranks)
 from repro_torch.workloads.spec import (ARRIVAL_KINDS, OP_KINDS, PRESETS,
@@ -22,6 +27,8 @@ __all__ = [
     "TABLE3_PRESETS", "OP_KINDS", "ARRIVAL_KINDS", "SYSTEMS",
     "DEFAULT_CFG", "KEYSPACE",
     "get_preset", "build_index", "live_records", "run_workload",
-    "run_systems", "write_json", "draw_keys", "zipf_keys", "zipf_ranks",
-    "latest_ranks", "scramble",
+    "run_systems", "run_cluster_workload", "run_cluster_systems",
+    "run_open_loop_workload", "run_open_loop_systems",
+    "write_json", "draw_keys", "zipf_keys", "zipf_ranks", "latest_ranks",
+    "scramble",
 ]

@@ -4,9 +4,11 @@
     python -m repro_torch.workloads --preset ycsb-a --device cpu --json out.json
     python -m repro_torch.workloads --list
 
-Runs on CUDA unless ``--device`` names another device.  The cluster,
-open-loop and trace-recording flags of :mod:`repro.workloads.cli` are
-accepted and refused: those planes are not ported yet.
+    python -m repro_torch.workloads --preset ycsb-a --quick --n-clients 16 \
+        --arrival poisson --rate 0.5 --record-trace trace.json --device cpu
+
+Runs on CUDA unless ``--device`` names another device.  The flags are
+those of :mod:`repro.workloads.cli`, plus ``--device``.
 """
 from __future__ import annotations
 
@@ -49,10 +51,36 @@ def main(argv: Optional[list] = None) -> str:
                          "(default: every internal level that fits)")
     ap.add_argument("--device", default="cuda",
                     help="torch device of the index (default cuda)")
-    for flag in ("--n-clients", "--arrival", "--rate", "--record-trace"):
-        ap.add_argument(flag, default=None, help="not ported yet")
+    ap.add_argument("--n-clients", type=int, default=None,
+                    help="run through the multi-CS cluster plane with N "
+                         "concurrent client threads spread over the "
+                         "config's compute servers (private caches + "
+                         "merged cross-CS contention; DESIGN.md §11)")
     ap.add_argument("--partitioned", action="store_true",
-                    help="not ported yet")
+                    help="DEX-style static key partitioning across the "
+                         "CSs (cluster plane only): each CS draws from "
+                         "its own record shard instead of the shared "
+                         "hot set")
+    ap.add_argument("--arrival", default=None,
+                    choices=("poisson", "bursty", "diurnal"),
+                    help="open-loop serving plane (DESIGN.md §12): ops "
+                         "arrive per this process at --rate instead of "
+                         "draining in lockstep rounds; requires "
+                         "--n-clients and --rate")
+    ap.add_argument("--rate", type=float, default=None, metavar="MOPS",
+                    help="offered load in Mops/s for --arrival")
+    ap.add_argument("--slo-us", type=float, default=100.0,
+                    help="sojourn SLO (us) used for slo_attainment in "
+                         "open-loop runs (default 100)")
+    ap.add_argument("--record-trace", default=None, metavar="PATH",
+                    help="record the run through the observability plane "
+                         "(repro_torch.obs, DESIGN.md §14) and export a "
+                         "Chrome/Perfetto trace-viewer JSON per system "
+                         "(multi-system runs suffix PATH with the system "
+                         "name); the BENCH json gains the obs breakdown")
+    ap.add_argument("--tail-k", type=int, default=16,
+                    help="top-K slowest ops kept in the tail-forensics "
+                         "table (default 16; needs --record-trace)")
     ap.add_argument("--seed", type=int, default=1)
     ap.add_argument("--quick", action="store_true",
                     help=f"CI-sized run ({QUICK})")
@@ -69,11 +97,6 @@ def main(argv: Optional[list] = None) -> str:
                   f"{f' theta={s.theta:g}' if s.distribution != 'uniform' else ''}]")
         print("systems:", ", ".join(sorted(engine.SYSTEMS)))
         return ""
-    for flag in ("n_clients", "arrival", "rate", "record_trace",
-                 "partitioned"):
-        if getattr(args, flag):
-            ap.error(f"--{flag.replace('_', '-')}: the cluster, open-loop "
-                     f"and observability planes are not ported yet")
     if not args.preset:
         ap.error("--preset is required (or use --list)")
 
@@ -102,10 +125,42 @@ def main(argv: Optional[list] = None) -> str:
     if args.cache_levels is not None and args.cache_levels <= 0:
         ap.error(f"--cache-levels must be positive, got {args.cache_levels}")
 
-    results = engine.run_systems(spec, systems, seed=args.seed,
-                                 cache_bytes=args.cache_bytes,
-                                 cache_levels=args.cache_levels,
-                                 device=args.device)
+    if args.n_clients is not None and args.n_clients <= 0:
+        ap.error(f"--n-clients must be positive, got {args.n_clients}")
+    if args.partitioned and args.n_clients is None:
+        ap.error("--partitioned requires --n-clients (cluster plane)")
+    if args.arrival is not None:
+        if args.n_clients is None:
+            ap.error("--arrival requires --n-clients (the serving plane "
+                     "feeds the cluster scheduler)")
+        if args.rate is None or args.rate <= 0:
+            ap.error("--arrival requires a positive --rate (Mops/s)")
+        spec = spec.replace(arrival=args.arrival, offered_mops=args.rate)
+    elif args.rate is not None:
+        ap.error("--rate only makes sense with --arrival")
+    if args.slo_us <= 0:
+        ap.error(f"--slo-us must be positive, got {args.slo_us}")
+    if args.tail_k <= 0:
+        ap.error(f"--tail-k must be positive, got {args.tail_k}")
+
+    recorders = {} if args.record_trace else None
+    rec_kw = dict(recorders=recorders, tail_k=args.tail_k)
+    if args.arrival is not None:
+        results = engine.run_open_loop_systems(
+            spec, systems, n_clients=args.n_clients, seed=args.seed,
+            cache_bytes=args.cache_bytes, cache_levels=args.cache_levels,
+            partitioned=args.partitioned, slo_us=args.slo_us,
+            device=args.device, **rec_kw)
+    elif args.n_clients is not None:
+        results = engine.run_cluster_systems(
+            spec, systems, n_clients=args.n_clients, seed=args.seed,
+            cache_bytes=args.cache_bytes, cache_levels=args.cache_levels,
+            partitioned=args.partitioned, device=args.device, **rec_kw)
+    else:
+        results = engine.run_systems(spec, systems, seed=args.seed,
+                                     cache_bytes=args.cache_bytes,
+                                     cache_levels=args.cache_levels,
+                                     device=args.device, **rec_kw)
     print(f"{'system':18s} {'Mops':>8s} {'p50us':>8s} {'p99us':>10s} "
           f"{'dbl50':>6s} {'wr.B':>7s} {'hit%':>6s} {'rd/l':>5s} "
           f"{'dbells':>8s} {'saved':>7s}")
@@ -115,6 +170,39 @@ def main(argv: Optional[list] = None) -> str:
               f"{r.write_bytes_median:7.0f} {100 * r.cache_hit_rate:6.1f} "
               f"{r.reads_per_lookup:5.2f} {r.doorbells:8d} "
               f"{r.doorbells_saved:7d}")
+        if r.per_cs:
+            stale = sum(p["cache_stale"] for p in r.per_cs)
+            print(f"  cluster: {len(r.per_cs)} CS x "
+                  f"{r.n_clients // len(r.per_cs)} threads, "
+                  f"{r.rounds} rounds, stale={stale}, "
+                  f"conservation={'OK' if r.conservation_ok else 'VIOLATED'}")
+        if r.arrival != "closed":
+            print(f"  open loop: {r.arrival} @ {r.offered_mops:.2f} Mops "
+                  f"offered, queue mean/p99 = {r.queue_mean_us:.2f}/"
+                  f"{r.queue_p99_us:.2f} us, service mean = "
+                  f"{r.service_mean_us:.2f} us, SLO({r.slo_us:.0f}us) "
+                  f"attainment = {100 * r.slo_attainment:.1f}%, "
+                  f"sustained = {100 * r.sustained_frac:.1f}%")
+
+    if recorders:
+        from repro_torch.obs import write_chrome_trace
+        for r in results:
+            rec = recorders.get(r.system)
+            if rec is None:
+                continue
+            tp = args.record_trace
+            if len(results) > 1:            # one trace file per system
+                stem, dot, ext = tp.rpartition(".")
+                tp = (f"{stem}.{r.system}.{ext}" if dot
+                      else f"{tp}.{r.system}")
+            write_chrome_trace(rec, tp)
+            a = r.obs.get("tail_attribution", {})
+            print(f"  trace: {tp} ({rec.n_verbs} verbs, "
+                  f"tail p99 attribution: "
+                  f"nic={100 * a.get('nic_queue_frac', 0):.0f}% "
+                  f"atomic={100 * a.get('atomic_ser_frac', 0):.0f}% "
+                  f"lock={100 * a.get('lock_wait_frac', 0):.0f}% "
+                  f"svc={100 * a.get('service_frac', 0):.0f}%)")
 
     path = args.json or f"BENCH_{spec.name.replace('-', '_')}.json"
     engine.write_json(path, spec, results)

@@ -1,12 +1,14 @@
 """The workload driver: run any :class:`WorkloadSpec` against the index.
 
-The PyTorch counterpart of :mod:`repro.workloads.engine` for single-frontend
-runs: :func:`run_workload` executes the spec's op mix in batched waves and
+The PyTorch counterpart of :mod:`repro.workloads.engine`:
+:func:`run_workload` executes the spec's op mix in batched waves and
 derives a structured :class:`RunResult` (throughput, latency percentiles,
 doorbell depth, write bytes, per-op-type counters) from the index's netsim
-counters.  The index lives on CUDA unless the caller passes
-``device="cpu"``.  The cluster, open-loop and recorder entry points of the
-reference are not ported yet.
+counters; :func:`run_cluster_workload` and :func:`run_open_loop_workload`
+drive the same spec through the multi-CS cluster plane, closed and open
+loop; a :class:`repro_torch.obs.Recorder` opts any of them into the
+observability plane.  The index or the fleet's pool lives on CUDA unless
+the caller passes ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -50,8 +52,8 @@ SYSTEMS: dict[str, Features] = {
 class RunResult:
     """Structured result of one workload run (one system, one spec).
 
-    The fields are the reference's; the cluster, open-loop and
-    observability fields keep their closed-loop defaults here."""
+    The fields are the reference's; single-frontend closed-loop runs keep
+    the cluster, open-loop and observability fields at their defaults."""
 
     mops: float
     p50_us: float
@@ -152,8 +154,12 @@ def live_records(idx: ShermanIndex) -> int:
     return int((st.keys[leaf] != EMPTY_KEY).sum())
 
 
-def _not_ported(what: str):
-    raise NotImplementedError(f"{what} is not ported to repro_torch yet")
+def _obs_summary(recorder, tail_k: int) -> dict:
+    """``RunResult.obs`` payload for an optionally-recorded run."""
+    if recorder is None:
+        return {}
+    from repro_torch.obs import summarize
+    return summarize(recorder, tail_k=tail_k)
 
 
 def run_workload(idx: ShermanIndex, spec: WorkloadSpec, *, seed: int = 1,
@@ -162,11 +168,14 @@ def run_workload(idx: ShermanIndex, spec: WorkloadSpec, *, seed: int = 1,
     """Run ``spec``'s op mix against ``idx`` and price it via netsim.
 
     The result reports only this run's deltas, so several runs may share one
-    index.  ``recorder`` (the observability plane) is not ported yet.
+    index.  ``recorder`` (a :class:`repro_torch.obs.Recorder`) opts into
+    the observability plane: every priced phase captures its per-verb
+    timeline and the result's ``obs`` field carries the aggregate
+    breakdown (top-``tail_k`` forensics included).
     """
-    if recorder is not None:
-        _not_ported("the observability plane (recorder)")
     rng = np.random.default_rng(seed)
+    if recorder is not None:
+        idx.recorder = recorder
     c0 = dict(idx.counters)
     lw0, lr0 = len(idx.latencies_write), len(idx.latencies_read)
     db0, wb0 = len(idx.doorbells_write), len(idx.write_bytes)
@@ -216,7 +225,8 @@ def run_workload(idx: ShermanIndex, spec: WorkloadSpec, *, seed: int = 1,
     delta = {k: idx.counters[k] - c0.get(k, 0) for k in idx.counters}
     return _summarize(spec, delta, done, sim_s, lat_w, lat_r, dbells, wb,
                       system=system,
-                      op_counts={k: v for k, v in op_counts.items() if v})
+                      op_counts={k: v for k, v in op_counts.items() if v},
+                      obs=_obs_summary(recorder, tail_k))
 
 
 def _cat(arrs) -> np.ndarray:
@@ -226,10 +236,10 @@ def _cat(arrs) -> np.ndarray:
 
 def _summarize(spec: WorkloadSpec, delta: dict, done: int, sim_s: float,
                lat_w, lat_r, dbells, wb, *, system: str = "",
-               op_counts: Optional[dict] = None) -> RunResult:
-    """Fold one run's counter deltas + latency samples into a RunResult;
-    percentiles over empty sample sets are 0.0, as is throughput when
-    nothing was priced."""
+               op_counts: Optional[dict] = None, **extra) -> RunResult:
+    """Fold one run's counter deltas + latency samples into a RunResult.
+    Shared by the single-frontend and cluster drivers; percentiles over
+    empty sample sets are 0.0, as is throughput when nothing was priced."""
     lat = np.concatenate([lat_w, lat_r])
 
     def pct(a, p, scale=1e6):
@@ -255,7 +265,26 @@ def _summarize(spec: WorkloadSpec, delta: dict, done: int, sim_s: float,
                           if delta["lookup_ops"] else 0.0),
         verbs=delta["verbs"], doorbells=delta["doorbells"],
         doorbells_saved=delta["verbs"] - delta["doorbells"],
-        retried_ops=delta["retried_ops"])
+        retried_ops=delta["retried_ops"], **extra)
+
+
+def _new_recorder(recorders: Optional[dict], name: str):
+    """A fresh per-system Recorder when the caller opted into recording
+    by passing a ``recorders`` dict (filled in as an out-parameter so
+    the CLI can export the captured timelines)."""
+    if recorders is None:
+        return None
+    from repro_torch.obs import Recorder
+    recorders[name] = Recorder()
+    return recorders[name]
+
+
+def _system(name: str) -> Features:
+    try:
+        return SYSTEMS[name.lower()]
+    except KeyError:
+        raise KeyError(f"unknown system {name!r}; "
+                       f"known: {', '.join(sorted(SYSTEMS))}") from None
 
 
 def run_systems(spec: WorkloadSpec, systems: Sequence[str] = ("sherman",
@@ -267,21 +296,191 @@ def run_systems(spec: WorkloadSpec, systems: Sequence[str] = ("sherman",
                 tail_k: int = 16, device=None) -> list[RunResult]:
     """Run one spec against several named systems (fresh index each) on
     ``device`` (default CUDA)."""
-    if recorders is not None:
-        _not_ported("the observability plane (recorders)")
     out = []
     for name in systems:
-        try:
-            feat = SYSTEMS[name.lower()]
-        except KeyError:
-            raise KeyError(f"unknown system {name!r}; "
-                           f"known: {', '.join(sorted(SYSTEMS))}") from None
-        idx = build_index(feat, cfg, records=spec.load_records,
+        idx = build_index(_system(name), cfg, records=spec.load_records,
                           keyspace=keyspace, cache_bytes=cache_bytes,
                           cache_levels=cache_levels, device=device)
         out.append(run_workload(idx, spec, seed=seed, keyspace=keyspace,
-                                system=name, tail_k=tail_k))
+                                system=name,
+                                recorder=_new_recorder(recorders, name),
+                                tail_k=tail_k))
     return out
+
+
+def run_cluster_workload(spec: WorkloadSpec, features: Features, *,
+                         n_clients: int, cfg: TreeConfig = DEFAULT_CFG,
+                         keyspace: int = KEYSPACE,
+                         cache_bytes: int = 64 << 20,
+                         cache_levels: Optional[int] = None,
+                         partitioned: bool = False, sync_rounds: int = 4,
+                         seed: int = 1, system: str = "",
+                         recorder=None, tail_k: int = 16,
+                         device=None) -> RunResult:
+    """Run one spec through the multi-CS cluster plane (DESIGN.md §11) on
+    ``device`` (default CUDA).
+
+    ``n_clients`` concurrent client threads are spread over
+    ``min(cfg.n_cs, n_clients)`` compute servers, each with a private
+    index cache / LLT view; every wave is priced by merging the
+    fleet's verb traces into one shared-resource timeline.  The result
+    carries the per-CS breakdown (``per_cs``) and the merged-vs-functional
+    ``conservation_ok`` invariant.
+    """
+    from repro_torch.cluster import build_cluster, run_cluster
+    cluster = build_cluster(features, cfg, n_clients=n_clients,
+                            records=spec.load_records, keyspace=keyspace,
+                            cache_bytes=cache_bytes,
+                            cache_levels=cache_levels,
+                            sync_rounds=sync_rounds, seed=0, device=device)
+    cluster.recorder = recorder
+    done, op_counts = run_cluster(cluster, spec, partitioned=partitioned,
+                                  seed=seed, keyspace=keyspace)
+    return cluster_result(cluster, spec, done, op_counts, system=system,
+                          obs=_obs_summary(recorder, tail_k))
+
+
+def cluster_result(cluster, spec: WorkloadSpec, done: int, op_counts: dict,
+                   *, system: str = "", obs=None) -> RunResult:
+    """Fold one closed-loop run of ``cluster`` into a RunResult: merged
+    totals plus the per-CS breakdown and the conservation verdict."""
+    delta = cluster.combined_counters()
+    return _summarize(
+        spec, delta, done, delta["sim_time_s"],
+        _cat(cluster.latencies_write), _cat(cluster.latencies_read),
+        _cat(cluster.doorbells_write), _cat(cluster.write_bytes),
+        system=system, op_counts=op_counts, n_clients=cluster.n_clients,
+        rounds=delta["rounds"], per_cs=_per_cs_rows(cluster),
+        conservation_ok=cluster.conservation_ok(), obs=obs or {})
+
+
+def _per_cs_rows(cluster) -> list:
+    """Per-CS breakdown rows shared by the cluster + open-loop drivers."""
+    rows = []
+    for node in cluster.nodes:
+        c = node.counters
+        t = c["cache_hits"] + c["cache_misses"] + c["cache_stale"]
+        rows.append(dict(
+            cs=node.cs_id, ops=c["ops"], write_ops=c["write_ops"],
+            read_ops=c["read_ops"], retried_ops=c["retried_ops"],
+            verbs=c["verbs"], doorbells=c["doorbells"],
+            leaf_splits=c["leaf_splits"], handovers=c["handovers"],
+            cache_hits=c["cache_hits"], cache_misses=c["cache_misses"],
+            cache_stale=c["cache_stale"],
+            cache_hit_rate=c["cache_hits"] / t if t else 0.0))
+    return rows
+
+
+def run_open_loop_workload(spec: WorkloadSpec, features: Features, *,
+                           n_clients: int, cfg: TreeConfig = DEFAULT_CFG,
+                           keyspace: int = KEYSPACE,
+                           cache_bytes: int = 64 << 20,
+                           cache_levels: Optional[int] = None,
+                           partitioned: bool = False, sync_rounds: int = 4,
+                           seed: int = 1, system: str = "",
+                           slo_us: float = 100.0,
+                           recorder=None, tail_k: int = 16,
+                           device=None) -> RunResult:
+    """Run one spec open-loop through the serving plane (DESIGN.md §12) on
+    ``device`` (default CUDA).
+
+    Ops arrive per ``spec.arrival`` / ``spec.offered_mops`` instead of
+    being drained in lockstep rounds: the admission loop feeds the same
+    bucketed cluster waves as arrivals drain, waves replay on one
+    absolute :class:`~repro_torch.core.netsim.ServerClock` timeline, and
+    every op's latency is its *sojourn* (arrival → completion) with the
+    NIC/atomic queueing share reported separately
+    (``queue_*`` vs ``service_mean_us``).
+    """
+    from repro_torch.cluster import build_cluster
+    from repro_torch.serve.loop import run_open_loop
+    cluster = build_cluster(features, cfg, n_clients=n_clients,
+                            records=spec.load_records, keyspace=keyspace,
+                            cache_bytes=cache_bytes,
+                            cache_levels=cache_levels,
+                            sync_rounds=sync_rounds, seed=0, device=device)
+    cluster.recorder = recorder   # enable_open_loop hands it to the clock
+    done, op_counts, info = run_open_loop(cluster, spec, seed=seed,
+                                          keyspace=keyspace,
+                                          partitioned=partitioned)
+    return open_loop_result(cluster, spec, done, op_counts, info,
+                            system=system, slo_us=slo_us,
+                            obs=_obs_summary(recorder, tail_k))
+
+
+def open_loop_result(cluster, spec: WorkloadSpec, done: int,
+                     op_counts: dict, info: dict, *, system: str = "",
+                     slo_us: float = 100.0, obs=None) -> RunResult:
+    """Fold one open-loop run of ``cluster`` into a RunResult: sojourn
+    percentiles, queueing delay apart from service, SLO attainment and
+    the sustained share of the offered load."""
+    delta = cluster.combined_counters()
+    lat_w = _cat(cluster.latencies_write)
+    lat_r = _cat(cluster.latencies_read)
+    lat = np.concatenate([lat_w, lat_r])
+    q = np.concatenate([_cat(cluster.queue_write),
+                        _cat(cluster.queue_read)])
+    horizon = delta["sim_time_s"]
+    achieved = done / horizon / 1e6 if horizon else 0.0
+    offered = info["offered_ops_s"] / 1e6
+    return _summarize(
+        spec, delta, done, horizon, lat_w, lat_r,
+        _cat(cluster.doorbells_write), _cat(cluster.write_bytes),
+        system=system, op_counts=op_counts, n_clients=cluster.n_clients,
+        rounds=info["waves"], per_cs=_per_cs_rows(cluster),
+        conservation_ok=cluster.conservation_ok(),
+        arrival=spec.arrival, offered_mops=offered,
+        queue_mean_us=float(q.mean()) * 1e6 if q.size else 0.0,
+        queue_p50_us=float(np.percentile(q, 50)) * 1e6 if q.size else 0.0,
+        queue_p99_us=float(np.percentile(q, 99)) * 1e6 if q.size else 0.0,
+        service_mean_us=(float(lat.mean() - q.mean()) * 1e6
+                         if lat.size and q.size else 0.0),
+        slo_us=slo_us,
+        slo_attainment=(float((lat <= slo_us * 1e-6).mean())
+                        if lat.size else 0.0),
+        sustained_frac=(min(1.0, achieved / offered) if offered else 1.0),
+        obs=obs or {})
+
+
+def run_open_loop_systems(spec: WorkloadSpec,
+                          systems: Sequence[str] = ("sherman", "fg+"),
+                          cfg: TreeConfig = DEFAULT_CFG, *,
+                          n_clients: int, keyspace: int = KEYSPACE,
+                          cache_bytes: int = 64 << 20,
+                          cache_levels: Optional[int] = None,
+                          partitioned: bool = False, sync_rounds: int = 4,
+                          seed: int = 1,
+                          slo_us: float = 100.0,
+                          recorders: Optional[dict] = None,
+                          tail_k: int = 16, device=None) -> list[RunResult]:
+    """Open-loop analogue of :func:`run_cluster_systems`."""
+    return [run_open_loop_workload(
+        spec, _system(name), n_clients=n_clients, cfg=cfg,
+        keyspace=keyspace, cache_bytes=cache_bytes,
+        cache_levels=cache_levels, partitioned=partitioned,
+        sync_rounds=sync_rounds, seed=seed, system=name, slo_us=slo_us,
+        recorder=_new_recorder(recorders, name), tail_k=tail_k,
+        device=device) for name in systems]
+
+
+def run_cluster_systems(spec: WorkloadSpec,
+                        systems: Sequence[str] = ("sherman", "fg+"),
+                        cfg: TreeConfig = DEFAULT_CFG, *,
+                        n_clients: int, keyspace: int = KEYSPACE,
+                        cache_bytes: int = 64 << 20,
+                        cache_levels: Optional[int] = None,
+                        partitioned: bool = False, sync_rounds: int = 4,
+                        seed: int = 1, recorders: Optional[dict] = None,
+                        tail_k: int = 16, device=None) -> list[RunResult]:
+    """Cluster-plane analogue of :func:`run_systems` (fresh fleet each,
+    on ``device``, default CUDA)."""
+    return [run_cluster_workload(
+        spec, _system(name), n_clients=n_clients, cfg=cfg,
+        keyspace=keyspace, cache_bytes=cache_bytes,
+        cache_levels=cache_levels, partitioned=partitioned,
+        sync_rounds=sync_rounds, seed=seed, system=name,
+        recorder=_new_recorder(recorders, name), tail_k=tail_k,
+        device=device) for name in systems]
 
 
 def write_json(path: str, spec: WorkloadSpec,

@@ -147,7 +147,7 @@ def pool_args(st, leaf, q):
 
 
 @pytest.mark.parametrize("f", [8, 16, 32, 64])
-@pytest.mark.parametrize("b", [512, 300, 1])
+@pytest.mark.parametrize("b", [512, 300, 64, 32, 16, 1])
 def test_leaf_search_pool_kernel_matches_plain_version(b, f):
     """One launch per lookup_leaves, bit for bit with the plain version
     (gather + search) on the same card tensors, and with itself."""
@@ -378,3 +378,36 @@ def test_model_on_the_card_matches_cpu(name):
     got = gpu.forward(model_gpu, {"tokens": batch["tokens"].cuda()})
     assert kernel.launches == n0 + cfg.n_layers
     close(got, cpu.forward(model, batch), 1e-4, 1e-4)
+
+
+# --------------------------------------------------------------------------
+# the cluster plane: card against CPU
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("system", ["sherman", "fg+"])
+def test_cluster_run_on_the_card_matches_cpu(system):
+    """One cluster run (8 CSs, private caches, stacked write waves) on the
+    card, through the pool entry of the leaf search, equals the same run
+    on the CPU: digests wave for wave, counters and the final tree."""
+    from repro_torch.cluster import build_cluster, run_cluster
+    from repro_torch.workloads import SYSTEMS, get_preset
+    cfg = TT.TreeConfig(n_ms=4, nodes_per_ms=1024, fanout=16,
+                        n_locks_per_ms=1024, max_height=7, n_cs=8)
+    spec = get_preset("ycsb-a", load_records=4_000, ops=1_024, batch=256)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        cl = build_cluster(SYSTEMS[system], cfg, n_clients=32,
+                           records=spec.load_records, device=dev)
+        cl.record_traces()
+        n0 = leaf_search.launches_pool
+        out = run_cluster(cl, spec, seed=1)
+        runs[dev] = (cl, out, leaf_search.launches_pool - n0)
+    (gpu, out_g, launches), (cpu, out_c, none) = runs["cuda"], runs["cpu"]
+    assert launches > 0 and none == 0
+    assert out_g == out_c
+    assert gpu.trace_log == cpu.trace_log
+    assert gpu.combined_counters() == cpu.combined_counters()
+    assert gpu.conservation_ok()
+    for a, b in zip(TT.state_to_numpy(gpu.state),
+                    TT.state_to_numpy(cpu.state)):
+        np.testing.assert_array_equal(a, b)

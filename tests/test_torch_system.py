@@ -197,10 +197,16 @@ def test_cli_runs_on_the_cpu_and_refuses_unported_planes(tmp_path, capsys):
     payload = json.loads(out.read_text())
     assert [r["system"] for r in payload["results"]] == ["sherman", "fg+"]
     assert all(r["mops"] > 0 for r in payload["results"])
-    for flag in (["--n-clients", "4"], ["--record-trace", "t.json"]):
+    # the planes' flags are ported: the CLI checks them as the
+    # reference's does, and no longer refuses them as not ported
+    for flag, says in ((["--partitioned"], "--partitioned requires"),
+                       (["--n-clients", "4", "--arrival", "poisson"],
+                        "--arrival requires a positive --rate"),
+                       (["--rate", "1"], "--rate only makes sense")):
         with pytest.raises(SystemExit):
             cli.main(["--preset", "ycsb-a", "--device", "cpu", *flag])
-        assert "not ported yet" in capsys.readouterr().err
+        err = capsys.readouterr().err
+        assert says in err and "not ported" not in err
     with jitstats.count_compiles() as stats:
         pass
     assert not stats.available and stats.count == -1
@@ -216,7 +222,14 @@ def test_entry_points_default_to_cuda(monkeypatch):
              lambda: TIndex.empty(cfg),
              lambda: TWL.build_index(T_SH, cfg, records=100),
              lambda: TWL.run_systems(spec, ("sherman",)),
-             lambda: cli.main(["--preset", "ycsb-a", "--quick"])]
+             lambda: TWL.run_cluster_systems(spec, ("sherman",),
+                                             n_clients=8),
+             lambda: TWL.run_open_loop_systems(
+                 spec.replace(arrival="poisson", offered_mops=1.0),
+                 ("sherman",), n_clients=8),
+             lambda: cli.main(["--preset", "ycsb-a", "--quick"]),
+             lambda: cli.main(["--preset", "ycsb-a", "--quick",
+                               "--n-clients", "8"])]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
@@ -227,7 +240,8 @@ def test_port_imports_neither_jax_nor_the_reference():
             "repro_torch.kernels.leaf_search.ops, repro_torch.configs, "
             "repro_torch.models.registry, "
             "repro_torch.kernels.flash_attention.ops, "
-            "repro_torch.kernels.rwkv_scan.ops\n"
+            "repro_torch.kernels.rwkv_scan.ops, repro_torch.cluster, "
+            "repro_torch.serve, repro_torch.obs\n"
             "from repro_torch.configs import get\n"
             "[get(n) for n in repro_torch.configs.ALL_ARCHS]\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "

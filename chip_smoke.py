@@ -30,7 +30,10 @@ Phases, in order; any failure raises and exits non-zero:
    then ``run_cluster_systems`` and ``run_open_loop_systems`` (Poisson,
    0.5 Mops offered) with 32 client threads over the default 8 CSs: equal
    RunResults and merged-trace digests wave for wave, and a recorded run
-   equal to the unrecorded one;
+   equal to the unrecorded one; then the chaos runner on the same fleet
+   under ``schedule_for_horizon`` (sherman and fg+): equal fault logs,
+   reports, final trees and digests, the card's tree equal to the oracle
+   replay of its executed writes, and a CPU snapshot resumed on the card;
 5. deploy  — the paper-scale index (1B records, 80% full leaves, height 8)
    under the write-intensive mix: bulkload, run, netsim metrics, kernel
    launches, the probe's batch sizes and launches per probe, peak memory;
@@ -43,8 +46,14 @@ Phases, in order; any failure raises and exits non-zero:
    and the open-loop phase (a fresh fleet, Poisson arrivals at half the
    cluster phase's netsim Mops, 16,384 ops, a Recorder attached: sojourn
    and queueing, the served waves' Chrome trace written, the recorded
-   spans tiling the simulated horizon); and every write acknowledged in
-   the three phases read back;
+   spans tiling the simulated horizon) and the chaos phase (a fresh fleet
+   under ``schedule_for_horizon`` of the cluster phase's horizon: one
+   checkpoint of the pool at round 0, MS 0 crashing with its memory lost,
+   restored from the checkpoint and the waves since replayed, CS 1
+   leaving and rejoining cold, a hot-key storm and its lift: the fault
+   log, time-to-recover, the save, restore and replay times,
+   conservation and a clean GLT); and every write acknowledged in the
+   four phases read back;
 6. lm-parity — reduced smollm-135m, granite-3-8b and rwkv6-1.6b in f32:
    the same weights on the card (kernels) and on the CPU (plain
    versions) give the same prefill, decode and forward logits;
@@ -923,25 +932,32 @@ def read_back(torch, dep: dict, phases: str) -> None:
         f"({t7 - t6:.3f} s)")
 
 
-def record_cluster_writes(cluster, acked: dict) -> None:
-    """Log every write ``cluster`` acknowledges into ``acked``, in lane
+def ack_wave(acked: dict, keys_by_cs, vals_by_cs=None,
+             is_delete: bool = False) -> None:
+    """Log one acknowledged cluster write wave into ``acked``, in lane
     order: a stacked wave's lanes follow CS order and its last lane wins,
     so a later CS's value for a key overwrites an earlier one's."""
+    for i, k in enumerate(keys_by_cs):
+        if k is None or not len(k):
+            continue
+        k = np.asarray(k, np.int32).astype(np.int64).tolist()
+        if is_delete:
+            acked.update(dict.fromkeys(k))
+            continue
+        v = vals_by_cs[i] if vals_by_cs is not None else None
+        v = np.zeros(len(k), np.int32) if v is None else \
+            np.asarray(v, np.int32)
+        acked.update(zip(k, v.astype(np.int64).tolist()))
+
+
+def record_cluster_writes(cluster, acked: dict) -> None:
+    """Log every write ``cluster`` acknowledges into ``acked``
+    (:func:`ack_wave`)."""
     write_wave = cluster.write_wave
 
     def recording(keys_by_cs, vals_by_cs=None, is_delete=False, **kw):
         write_wave(keys_by_cs, vals_by_cs, is_delete, **kw)
-        for i, k in enumerate(keys_by_cs):
-            if k is None or not len(k):
-                continue
-            k = np.asarray(k, np.int32).astype(np.int64).tolist()
-            if is_delete:
-                acked.update(dict.fromkeys(k))
-                continue
-            v = vals_by_cs[i] if vals_by_cs is not None else None
-            v = np.zeros(len(k), np.int32) if v is None else \
-                np.asarray(v, np.int32)
-            acked.update(zip(k, v.astype(np.int64).tolist()))
+        ack_wave(acked, keys_by_cs, vals_by_cs, is_delete)
     cluster.write_wave = recording
 
 
@@ -968,6 +984,7 @@ def phase_cluster(torch, leaf_search, cfg, state, spec, keyspace: int,
         done, op_counts = run_cluster(cl, cspec, keyspace=keyspace)
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
+    horizon = cl.counters["sim_time_s"]
     res = engine.cluster_result(cl, cspec, done, op_counts,
                                 system="sherman")
     log(f"cluster run {run_s:.3f} s, {done / run_s:.1f} ops/s wall-clock "
@@ -1004,7 +1021,7 @@ def phase_cluster(torch, leaf_search, cfg, state, spec, keyspace: int,
         return one.ops
     layer_split(torch, "cluster", "round", run, CLUSTER_LAYERS,
                 probes=sum(one_round.probes.values()))
-    return cl.state, pc.launches, res.mops
+    return cl.state, pc.launches, res.mops, horizon
 
 
 def sim_time_by_kind(cluster) -> dict:
@@ -1100,6 +1117,247 @@ def phase_open_loop(torch, leaf_search, cfg, state, spec, keyspace: int,
     pc.check("open loop")
     return cl.state, pc.launches
 
+
+def chaos_runner(system: str, device: str, spec, ckpt=None, every: int = 0):
+    """The chaos runner over ``DEFAULT_CFG``'s 8 CSs with 32 client
+    threads, on the fleet ``run_cluster_systems`` builds, logging its
+    merged-trace digests."""
+    from repro_torch.chaos import ChaosRunner
+    from repro_torch.cluster import build_cluster
+    from repro_torch.workloads import engine
+    cl = build_cluster(engine.SYSTEMS[system], engine.DEFAULT_CFG,
+                       n_clients=32, records=spec.load_records,
+                       device=device)
+    cl.record_traces()
+    return ChaosRunner(cl, spec, seed=1, ckpt_dir=ckpt, ckpt_every=every)
+
+
+def same_chaos_run(what: str, a, b) -> None:
+    """Raise unless two chaos runs agree: fault logs, samples, reports,
+    op counts, merged-trace digests wave for wave and the final trees."""
+    from repro_torch.core.tree import state_to_numpy
+    for name in ("fault_log", "samples", "op_counts"):
+        if getattr(a, name) != getattr(b, name):
+            raise AssertionError(f"{what}: {name} differ")
+    if a.report() != b.report():
+        raise AssertionError(f"{what}: reports differ")
+    la, lb = a.cluster.trace_log, b.cluster.trace_log
+    if la != lb:
+        wave = next((i for i, (x, y) in enumerate(zip(la, lb)) if x != y),
+                    min(len(la), len(lb)))
+        raise AssertionError(f"{what}: trace digests differ from wave "
+                             f"{wave}")
+    for name, x, y in zip(a.cluster.state._fields,
+                          state_to_numpy(a.cluster.state),
+                          state_to_numpy(b.cluster.state)):
+        if x.dtype != y.dtype or not np.array_equal(x, y):
+            raise AssertionError(f"{what}: final trees differ in {name}")
+
+
+def phase_chaos_parity(torch, leaf_search, get_preset):
+    """The chaos runner on the quick YCSB-A spec, card == CPU, for sherman
+    and fg+ under ``schedule_for_horizon`` (a memory-losing MS crash
+    restored from its checkpoint and replayed, CS 1 leaving and rejoining
+    cold, a hot-key storm and its lift; ``h`` from a fault-free run); the
+    card's tree also equals the oracle replay of its executed write log.
+    Then a snapshot written by the CPU run resumes on the card with the
+    CPU run's digests."""
+    import tempfile
+    from repro_torch.chaos import (oracle_replay, schedule_for_horizon,
+                                   tree_contents)
+    from repro_torch.workloads import engine
+    quick = get_preset("ycsb-a", load_records=8_000, ops=1_024, batch=512)
+    keys, vals = engine.load_arrays(quick.load_records, engine.KEYSPACE,
+                                    seed=0, device="cpu")
+    loaded = (keys.numpy(), vals.numpy())
+    with tempfile.TemporaryDirectory(prefix="chaos_parity_") as tmp:
+        specs = {}
+        for system in ("sherman", "fg+"):
+            h = chaos_runner(system, "cpu", quick).run() \
+                .cluster.counters["sim_time_s"]
+            spec = specs[system] = quick.replace(
+                faults=schedule_for_horizon(h, cs=1))
+            runs = {}
+            for dev in ("cuda", "cpu"):
+                r = chaos_runner(system, dev, spec,
+                                 ckpt=f"{tmp}/{system}/{dev}", every=4)
+                leaf_search.launches = leaf_search.launches_pool = 0
+                t0 = time.perf_counter()
+                r.run()
+                torch.cuda.synchronize()
+                runs[dev] = (r, time.perf_counter() - t0,
+                             leaf_search.launches, leaf_search.launches_pool)
+            (gpu, gpu_s, launches, pool), (cpu, cpu_s, _, _) = \
+                runs["cuda"], runs["cpu"]
+            same_chaos_run(f"chaos {system}", gpu, cpu)
+            rep = gpu.report()
+            oracle_ok = tree_contents(gpu.cluster.state) == \
+                dict(oracle_replay(*loaded, gpu.write_log).items())
+            crash = gpu.fault_log[0]
+            if not (oracle_ok and rep["conservation_ok"] and
+                    rep["glt_clean"] and rep["unfired_faults"] == 0 and
+                    crash["lose_memory"] and crash["replayed_waves"] >= 1
+                    and launches > 0 and pool == launches):
+                raise AssertionError(f"chaos {system}: oracle {oracle_ok}, "
+                                     f"report {rep}, launches {launches} "
+                                     f"(pool entry {pool})")
+            log(f"parity  chaos {system}: GPU == CPU fault log "
+                f"({len(gpu.fault_log)} faults; crash: "
+                f"{crash['abandoned_repairs']} abandoned repairs, "
+                f"{crash['replayed_waves']} waves replayed), samples, "
+                f"report, final tree and "
+                f"{len(gpu.cluster.trace_log)} merged-trace digests wave "
+                f"for wave; oracle_ok True; overall mops "
+                f"{rep['overall_mops']}; GPU run {gpu_s:.3f} s, CPU run "
+                f"{cpu_s:.3f} s, leaf_search launches {launches} (pool "
+                f"entry {pool})")
+        # a CPU snapshot (round 16) resumes on the card
+        whole = chaos_runner("sherman", "cpu", specs["sherman"],
+                             ckpt=f"{tmp}/whole", every=4).run()
+        part = chaos_runner("sherman", "cpu", specs["sherman"],
+                            ckpt=f"{tmp}/resume", every=4)
+        part.run(until_round=16)
+        n_dig = len(part.cluster.trace_log)
+        card = chaos_runner("sherman", "cuda", specs["sherman"],
+                            ckpt=f"{tmp}/resume", every=4)
+        if card.load_latest() != 16 or \
+                card.cluster.state.keys.device.type != "cuda":
+            raise AssertionError("chaos resume: not at round 16 on the card")
+        card.cluster.record_traces()
+        card.run()
+        whole.cluster.trace_log = whole.cluster.trace_log[n_dig:]
+        same_chaos_run("chaos resume", card, whole)
+        log(f"parity  chaos resume: a CPU snapshot at round 16 resumes on "
+            f"the card; {len(card.cluster.trace_log)} merged-trace digests, "
+            f"report and final tree equal the uninterrupted CPU run's")
+
+
+def phase_chaos(torch, leaf_search, cfg, state, spec, keyspace: int,
+                acked: dict, horizon: float):
+    """deploy-1B-chaos: a fresh 8-CS fleet on deploy-1B's pool runs the
+    cluster cell's ops under ``schedule_for_horizon(horizon, ms=0, cs=1,
+    lose_memory=True)``: one checkpoint at round 0 (the pool and eight
+    cache images, in the system temp directory, removed at the end), MS 0
+    crashing and losing its memory at 0.2 h (restore, then replay of every
+    wave since), CS 1 leaving and rejoining cold, a 16-key hot storm and
+    its lift.  Every write the run executed goes into ``acked`` for the
+    read-back; the runner's state is returned.  ``oracle_replay`` and
+    ``tree_contents`` build Python dicts of every record, so at 1B records
+    the read-back is this cell's audit.  The run draws with seed 2: with
+    the cluster phase's seed 1 it would write the cluster phase's own
+    keys and values again, and a write lost in the crash could still
+    read back right."""
+    import tempfile
+    from repro_torch.chaos import ChaosRunner, schedule_for_horizon
+    from repro_torch.cluster import Cluster
+    from repro_torch.core import SHERMAN
+    cl = Cluster(cfg, state, features=SHERMAN, n_clients=1024)
+    del state               # the runner's cluster holds the only pool now
+    sched = schedule_for_horizon(horizon, ms=0, cs=1, lose_memory=True)
+    cspec = dataclasses.replace(spec, ops=CLUSTER_OPS, faults=sched)
+    log(f"chaos   {cl.n_cs} CSs x {cl.per_cs} lanes, {cspec.name}, "
+        f"{CLUSTER_OPS} ops, keyspace 2^30, on deploy-1B's pool; faults at "
+        f"fractions of the cluster phase's horizon {horizon} s: " + "; ".join(
+            f"{e.kind} at {e.at_s} s" for e in sched))
+    with tempfile.TemporaryDirectory(prefix="deploy1b_chaos_") as ckpt:
+        log(f"chaos   checkpoint directory {ckpt}: "
+            f"{shutil.disk_usage(ckpt).free / 1e9:.1f} GB free on its disk")
+        runner = ChaosRunner(cl, cspec, seed=2, keyspace=keyspace,
+                             ckpt_dir=ckpt, ckpt_every=0, keep=1)
+        clock = chaos_clock(torch, runner)
+        torch.cuda.reset_peak_memory_stats()
+        with ProbeCount(leaf_search) as pc:
+            t0 = time.perf_counter()
+            runner.run()
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    rep = runner.report()
+    for f in runner.fault_log:
+        log(f"chaos   fault {json.dumps(f)}")
+    for f in rep["faults"]:
+        log(f"chaos   {f['kind']} at {f['t_fault_s']} s: ttr_s "
+            f"{f['ttr_s']} degraded_mops {f['degraded_mops']}")
+    log(f"chaos   netsim baseline_mops {rep['baseline_mops']} overall_mops "
+        f"{rep['overall_mops']}; sim_time_s {rep['sim_time_s']}; "
+        f"unfired_faults {rep['unfired_faults']}; conservation_ok "
+        f"{rep['conservation_ok']}; glt_clean {rep['glt_clean']}")
+    gb = clock["save_bytes"] / 1e9
+    rounds_s = run_s - clock["save_s"] - clock["disk_s"] - clock["h2d_s"] \
+        - clock["replay_s"]
+    log(f"chaos   host clock: checkpoint save {clock['save_s']:.3f} s "
+        f"({gb:.3f} GB, {gb / clock['save_s']:.3f} GB/s); restore disk to "
+        f"host {clock['disk_s']:.3f} s, host to device {clock['h2d_s']:.3f}"
+        f" s; replay of {clock['replayed']} waves {clock['replay_s']:.3f} "
+        f"s; the rest of the run {rounds_s:.3f} s")
+    log(f"chaos   run {run_s:.3f} s, {runner.done / run_s:.1f} ops/s "
+        f"wall-clock on the card; leaf_search launches {pc.launches} (pool "
+        f"entry {pc.launches_pool}); max_memory_allocated {peak}")
+    log("chaos   probes (lookup_leaves calls) by (batch size, kernel "
+        "launches a call): " + pc.line())
+    fired = [f for f in rep["faults"] if not f.get("skipped")]
+    if rep["unfired_faults"] or not rep["conservation_ok"] or \
+            not rep["glt_clean"] or runner.done != CLUSTER_OPS or \
+            not all(f["ttr_s"] is not None and math.isfinite(f["ttr_s"])
+                    for f in fired) or clock["replayed"] < 1:
+        raise AssertionError(f"chaos: {rep}")
+    pc.check("chaos")
+    mine: dict = {}
+    for keys_by, vals_by, is_delete in runner.write_log:
+        ack_wave(mine, keys_by, vals_by, is_delete)
+    fresh = sum(1 for k, v in mine.items() if k not in acked or
+                acked[k] != v)
+    acked.update(mine)
+    log(f"chaos   {len(runner.write_log)} write waves acknowledged "
+        f"{len(mine)} keys, {fresh} of them with a value no earlier phase "
+        f"acknowledged")
+    return runner.cluster.state, pc.launches
+
+
+def chaos_clock(torch, runner) -> dict:
+    """Time the chaos runner's checkpoint save, the crash's restore (disk
+    to host, host to device) and its redo replay on the host clock, each
+    ending in a device synchronize; the run itself is unchanged."""
+    out = dict(save_s=0.0, save_bytes=0, disk_s=0.0, h2d_s=0.0,
+               replay_s=0.0, replayed=0)
+
+    def timed(fn, key):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn(*a, **kw)
+            torch.cuda.synchronize()
+            out[key] += time.perf_counter() - t0
+            return res
+        return run
+
+    save, raw = runner.save_checkpoint, runner._raw_by_key
+    restore = runner._restore_tree_latest
+    write_wave = runner.cluster.write_wave
+
+    def saving():
+        timed(save, "save_s")()
+        step = os.path.join(runner.mgr.dir, f"step_{runner.round_no:08d}")
+        out["save_bytes"] += sum(e.stat().st_size for e in os.scandir(step))
+
+    def restoring():
+        disk0 = out["disk_s"]
+        t0 = time.perf_counter()
+        res = restore()
+        torch.cuda.synchronize()
+        out["h2d_s"] += time.perf_counter() - t0 - (out["disk_s"] - disk0)
+        return res
+
+    def writing(*a, **kw):
+        if not runner._replaying:
+            return write_wave(*a, **kw)
+        out["replayed"] += 1
+        return timed(write_wave, "replay_s")(*a, **kw)
+    runner.save_checkpoint = saving
+    runner._raw_by_key = timed(raw, "disk_s")
+    runner._restore_tree_latest = restoring
+    runner.cluster.write_wave = writing
+    return out
 
 def phase_flash(torch, flash_attention, attention_ref, route_of):
     import torch.nn.functional as F
@@ -1507,22 +1765,27 @@ def main(argv=None) -> int:
 
     # 4. the GPU run agrees with the CPU run
     phase_parity(torch, leaf_search, engine, get_preset)
+    phase_chaos_parity(torch, leaf_search, get_preset)
 
     # 5. the deployment phase
     # the pool scales with the records: 25,165,824 rows per MS at 1B
     npm = 25_165_824 * args.records // 1_000_000_000
     dep = phase_deploy(torch, leaf_search, args.records, npm)
-    # the cluster and open-loop phases on the same pool, then the read-back
-    # of all three phases' acknowledged writes
+    # the cluster, open-loop and chaos phases on the same pool, then the
+    # read-back of all four phases' acknowledged writes
     cfg, spec, acked = dep["cfg"], dep["spec"], dep["acked"]
-    dep["state"], cluster_launches, mops = phase_cluster(
+    dep["state"], cluster_launches, mops, horizon = phase_cluster(
         torch, leaf_search, cfg, dep["state"], spec, dep["keyspace"], acked)
     dep["state"], open_launches = phase_open_loop(
         torch, leaf_search, cfg, dep["state"], spec, dep["keyspace"], acked,
         mops / 2)
-    read_back(torch, dep, "deploy, cluster and open-loop phases")
+    gc.collect()        # the earlier phases' fleets hold the pool in cycles
+    dep["state"], chaos_launches = phase_chaos(
+        torch, leaf_search, cfg, dep.pop("state"), spec, dep["keyspace"],
+        acked, horizon)
+    read_back(torch, dep, "deploy, cluster, open-loop and chaos phases")
     leaf_paths = dict(deploy=dep["launches"], cluster=cluster_launches,
-                      open_loop=open_launches)
+                      open_loop=open_launches, chaos=chaos_launches)
     launches = {"leaf_search": dep["launches"]}
     del dep, acked
     gc.collect()                # the index's pool, held by a cycle

@@ -43,13 +43,13 @@ class ClusterNode:
                  cache_levels: Optional[int] = None,
                  cache_sync_every: int = 8,
                  cache_chase_hops: int = 4,
-                 sync_rounds: int = 4):
+                 sync_rounds: int = 4, device=None):
         self.cs_id = int(cs_id)
         self.cfg = cfg
         self.cache = IndexCache(cfg, cache_bytes, levels=cache_levels,
                                 chase_hops=cache_chase_hops,
                                 sync_every=cache_sync_every,
-                                sync_rounds=sync_rounds)
+                                sync_rounds=sync_rounds, device=device)
         self.counters = {
             "ops": 0, "write_ops": 0, "read_ops": 0, "retried_ops": 0,
             "phases": 0, "lookup_ops": 0, "lookup_reads": 0,

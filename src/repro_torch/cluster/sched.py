@@ -86,7 +86,8 @@ class Cluster:
                 f"threads ({n_cs} CS x {self.per_cs})", stacklevel=2)
         self.nodes = [
             ClusterNode(i, cfg, cache_bytes=cache_bytes,
-                        cache_levels=cache_levels, sync_rounds=sync_rounds)
+                        cache_levels=cache_levels, sync_rounds=sync_rounds,
+                        device=self.device)
             for i in range(n_cs)]
         # the wave-scope repair queue: half-splits of the stacked dispatch
         self.repair = RepairQueue.empty(REPAIR_CAP, self.device)
@@ -240,7 +241,7 @@ class Cluster:
     # -- cluster waves -----------------------------------------------------
     def write_wave(self, keys_by_cs: Sequence, vals_by_cs=None,
                    is_delete: bool = False, max_phases: int = 8,
-                   arrivals_by_cs=None) -> None:
+                   arrivals_by_cs=None, drain: bool = True) -> None:
         """One cluster write wave: every CS's batch, stacked into a single
         ``[n_cs*B]``-lane write phase per phase, priced phase-by-phase in
         one merged timeline.
@@ -249,7 +250,13 @@ class Cluster:
         release times (absolute seconds); each retry phase is released
         by the op's previous phase completion (``release = max(release,
         completion)``), and one sojourn/queueing sample per *op* (not
-        per phase) lands in ``latencies_write`` / ``queue_write``."""
+        per phase) lands in ``latencies_write`` / ``queue_write``.
+
+        ``drain=False`` leaves the wave's half-splits *pending* in the
+        shared repair queue instead of completing them — the chaos plane
+        uses this to crash a memory server while GLT handovers and
+        repairs are in flight (DESIGN.md §13); the B-link invariant
+        keeps the tree correct until they are re-derived or replayed."""
         segs = []
         for i in range(self.n_cs):
             k = keys_by_cs[i] if i < len(keys_by_cs) else None
@@ -316,7 +323,8 @@ class Cluster:
         if bool(active.any()):
             raise RuntimeError("cluster write wave did not converge; "
                                "pool exhausted or max_phases too low")
-        self.drain_repairs()
+        if drain:
+            self.drain_repairs()
         # cross-CS conflict decomposition over the first phase's targets
         sd0 = phase_sds[0]
         leaves = [sd0["leaf"][sd0["active"] & (cs_np == i)]

@@ -130,7 +130,8 @@ class ShermanIndex:
         self.net = net or NetConfig()
         self.cache = IndexCache(cfg, cache_bytes, levels=cache_levels,
                                 chase_hops=cache_chase_hops,
-                                sync_every=cache_sync_every)
+                                sync_every=cache_sync_every,
+                                device=self.device)
         self.counters = {
             "phases": 0, "write_ops": 0, "retried_ops": 0, "read_ops": 0,
             "leaf_splits": 0,

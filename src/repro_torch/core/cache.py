@@ -231,15 +231,17 @@ class IndexCache:
     split-bearing write phases between version sweeps; ``sync_rounds``
     adds a scheduler-round-periodic sweep (see :meth:`end_round`); a
     root split always forces a refresh on the next read.  The image lives
-    on the state's device; the host keeps copies of its small per-row
-    columns (rows, valid, fnv, level, first separator).
+    on the state's device, ``device`` (default CUDA); the host keeps
+    copies of its small per-row columns (rows, valid, fnv, level, first
+    separator).
     """
 
     def __init__(self, cfg: TreeConfig, capacity_bytes: int = 64 << 20,
                  levels: Optional[int] = None, chase_hops: int = 4,
                  sync_every: int = 8, refresh_frac: float = 0.125,
-                 sync_rounds: int = 0):
+                 sync_rounds: int = 0, device=None):
         self.cfg = cfg
+        self._device = device
         self.capacity_bytes = int(capacity_bytes)
         self.capacity_rows = max(1, min(
             self.capacity_bytes // max(cfg.node_bytes, 1), cfg.n_nodes))
@@ -454,6 +456,55 @@ class IndexCache:
         if self._image is None:
             return np.zeros(0, np.int32)
         return self.cfg.ms_of(self._rows[self._filled]).astype(np.int32)
+
+    # -- chaos plane: cold restart + full-state snapshot -------------------
+    def reset(self) -> None:
+        """Cold restart: drop the image (a CS that just joined the fleet
+        has nothing cached — its first read triggers a full fill, the
+        warm-up transient the chaos plane prices; DESIGN.md §13).
+        Cumulative counters are kept: they are this CS's *history*, and
+        the cluster conservation invariant sums them across the run."""
+        self._image = None
+        self._set_host_columns(None)
+        self._splitty_phases = 0
+        self._rounds_since_sync = 0
+        self._needs_refresh = True
+
+    def export_state(self) -> tuple[Optional[dict], dict]:
+        """Snapshot the cache's full mutable state as
+        ``(image_arrays, scalars)`` — everything a tick-for-tick resume
+        needs (the image drives routing and maintenance pricing, so a
+        resumed run with a refilled-instead-of-restored cache would
+        diverge from the uninterrupted one).  The image arrays are host
+        copies: the port updates images in place, and ``.numpy()`` of a
+        CPU tensor would alias it.  The scalars are plain Python ints and
+        bools, so ``json.dump`` takes them."""
+        image = None
+        if self._image is not None:
+            image = {k: v.cpu().numpy().copy()
+                     for k, v in self._image.items()}
+        scalars = dict(
+            counters=self.counters.as_dict(),
+            rounds_since_sync=int(self._rounds_since_sync),
+            splitty_phases=int(self._splitty_phases),
+            needs_refresh=bool(self._needs_refresh),
+            maint_taken=[int(x) for x in self._maint_taken],
+        )
+        return image, scalars
+
+    def import_state(self, image: Optional[dict], scalars: dict) -> None:
+        """Restore a snapshot taken by :meth:`export_state` (by either
+        package); the image goes onto the cache's own device."""
+        if image is None:
+            self.reset()
+        else:
+            self._image = image_from_numpy(image, self._device)
+            self._set_host_columns(self._image)
+        self.counters = CacheCounters(**scalars["counters"])
+        self._rounds_since_sync = int(scalars["rounds_since_sync"])
+        self._splitty_phases = int(scalars["splitty_phases"])
+        self._needs_refresh = bool(scalars["needs_refresh"])
+        self._maint_taken = tuple(scalars["maint_taken"])
 
     # -- reporting ---------------------------------------------------------
     @property

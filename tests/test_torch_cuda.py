@@ -411,3 +411,91 @@ def test_cluster_run_on_the_card_matches_cpu(system):
     for a, b in zip(TT.state_to_numpy(gpu.state),
                     TT.state_to_numpy(cpu.state)):
         np.testing.assert_array_equal(a, b)
+
+
+# --------------------------------------------------------------------------
+# the chaos plane on the card == on the CPU
+# --------------------------------------------------------------------------
+
+CHAOS_CFG = dict(n_ms=2, nodes_per_ms=1024, fanout=8, n_locks_per_ms=512,
+                 max_height=6, n_cs=4)
+
+
+def chaos_runner(system, device, faults=(), ckpt=None, every=0):
+    """tests/test_chaos.py's recipe (2,000 records, the 640-op chaos-mix
+    spec) with 32 client threads, on ``device``."""
+    from repro_torch.chaos import ChaosRunner
+    from repro_torch.cluster import build_cluster
+    from repro_torch.workloads import SYSTEMS
+    from repro_torch.workloads.spec import WorkloadSpec
+    spec = WorkloadSpec(name="chaos-mix", read=0.3, update=0.3, insert=0.2,
+                        delete=0.1, rmw=0.1, load_records=2_000, ops=640,
+                        batch=128, faults=tuple(faults))
+    cl = build_cluster(SYSTEMS[system], TT.TreeConfig(**CHAOS_CFG),
+                       n_clients=32, records=2_000, cache_bytes=4 << 20,
+                       sync_rounds=2, device=device)
+    cl.record_traces()
+    return ChaosRunner(cl, spec, seed=1, ckpt_dir=ckpt, ckpt_every=every)
+
+
+def assert_same_chaos_run(a, b):
+    assert a.fault_log == b.fault_log
+    assert a.samples == b.samples
+    assert a.report() == b.report()
+    assert a.op_counts == b.op_counts
+    assert a.cluster.trace_log == b.cluster.trace_log
+    assert a.cluster.combined_counters() == b.cluster.combined_counters()
+    for x, y in zip(TT.state_to_numpy(a.cluster.state),
+                    TT.state_to_numpy(b.cluster.state)):
+        assert x.dtype == y.dtype
+        np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("system", ["sherman", "fg+"])
+def test_chaos_run_on_the_card_matches_cpu(system, tmp_path):
+    """A schedule of every kind (a memory-losing MS crash restored from
+    its checkpoint and replayed, CS leave and cold rejoin, a hot-key storm
+    and its lift) on the card equals the same run on the CPU: fault log,
+    samples, report, digests wave for wave, counters and the final tree;
+    the card's restored tree and repair queue stay on the card."""
+    from repro_torch.chaos import schedule_for_horizon
+    h = chaos_runner(system, "cpu").run().cluster.counters["sim_time_s"]
+    sched = schedule_for_horizon(h, cs=1)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        r = chaos_runner(system, dev, sched, ckpt=str(tmp_path / dev),
+                         every=4)
+        n0, p0 = leaf_search.launches, leaf_search.launches_pool
+        r.run()
+        runs[dev] = (r, leaf_search.launches - n0,
+                     leaf_search.launches_pool - p0)
+    (gpu, launches, pool), (cpu, none, _) = runs["cuda"], runs["cpu"]
+    assert launches > 0 and pool == launches and none == 0
+    assert_same_chaos_run(gpu, cpu)
+    rep = gpu.report()
+    assert rep["unfired_faults"] == 0 and rep["conservation_ok"]
+    assert rep["glt_clean"]
+    crash = [f for f in gpu.fault_log if f["kind"] == "ms_crash"]
+    assert crash[0]["lose_memory"] and crash[0]["replayed_waves"] >= 1
+    assert all(x.device.type == "cuda" for x in gpu.cluster.state)
+    assert all(x.device.type == "cuda" for x in gpu.cluster.repair)
+
+
+def test_chaos_cpu_snapshot_resumes_on_the_card(tmp_path):
+    """A round-3 snapshot written by a CPU run resumes in a fresh runner
+    on the card with the CPU run's digests, counters and final tree."""
+    whole = chaos_runner("sherman", "cpu").run()
+    part = chaos_runner("sherman", "cpu", ckpt=str(tmp_path), every=3)
+    part.run(until_round=3)
+    n_dig = len(part.cluster.trace_log)
+    card = chaos_runner("sherman", "cuda", ckpt=str(tmp_path))
+    assert card.load_latest() == 3
+    assert all(x.device.type == "cuda" for x in card.cluster.state)
+    card.cluster.record_traces()
+    card.run()
+    assert card.cluster.trace_log == whole.cluster.trace_log[n_dig:]
+    assert card.cluster.counters == whole.cluster.counters
+    assert card.report() == whole.report()
+    for x, y in zip(TT.state_to_numpy(card.cluster.state),
+                    TT.state_to_numpy(whole.cluster.state)):
+        np.testing.assert_array_equal(x, y)

@@ -53,7 +53,17 @@ Phases, in order; any failure raises and exits non-zero:
    leaving and rejoining cold, a hot-key storm and its lift: the fault
    log, time-to-recover, the save, restore and replay times,
    conservation and a clean GLT); and every write acknowledged in the
-   four phases read back;
+   four phases read back; then the mesh-sharded index: the reference
+   test's mesh (2, 4) as 8 gloo ranks on the card and 8 on the CPU
+   (routed lookups and pjit waves bit for bit, each wave's gathered pool
+   equal to the single-process ``write_phase``), and deploy-1B's pool on
+   mesh (1, 4), one rank a memory server (each holding its block and an
+   image of every internal level): every acknowledged write and 1,024
+   absent keys read through routed lookups, ``SHARDED_WAVES``
+   write-intensive waves through the pjit path, everything read back
+   again; routed lookups/s, one ``all_reduce``'s ms, each wave's gather,
+   write phase and send-back seconds, K1 launches and peak memory per
+   rank, and the card's sampled peak;
 6. lm-parity — reduced smollm-135m, granite-3-8b and rwkv6-1.6b in f32:
    the same weights on the card (kernels) and on the CPU (plain
    versions) give the same prefill, decode and forward logits;
@@ -1359,6 +1369,398 @@ def chaos_clock(torch, runner) -> dict:
     runner.cluster.write_wave = writing
     return out
 
+
+# --------------------------------------------------------------------------
+# the mesh-sharded index (repro_torch.core.sharded) on gloo ranks
+# --------------------------------------------------------------------------
+
+#: tests/test_distributed_subprocess.py's geometry, for the parity mesh
+SHARDED_PARITY_CFG = dict(n_ms=4, nodes_per_ms=256, fanout=8,
+                          n_locks_per_ms=512, max_height=6, n_cs=2)
+#: lanes of a routed lookup and of a write-intensive wave
+SHARDED_BATCH = 1_024
+#: write-intensive waves of deploy-1B-sharded through the pjit path
+SHARDED_WAVES = 4
+SHARDED_TIMEOUT = 900.0
+
+
+def _data_shard(torch, mesh, x):
+    """This rank's data shard of a global per-lane numpy array."""
+    d, i = mesh.shape["data"], mesh.axis_index("data")
+    n = len(x) // d
+    return torch.from_numpy(np.ascontiguousarray(x[i * n:(i + 1) * n])
+                            ).to(mesh.device)
+
+
+def _lane_cs(n: int, n_cs: int) -> np.ndarray:
+    """Lane -> compute server in contiguous blocks, as ``ShermanIndex``
+    assigns them."""
+    return ((np.arange(n) // max(1, -(-n // n_cs))) % n_cs).astype(np.int32)
+
+
+def sharded_parity_rank(mesh, state_np, qkeys, waves):
+    """A rank of the parity mesh: the routed lookup of ``qkeys`` at cache
+    depth 3, then each wave through the pjit path from the bulkloaded
+    state."""
+    import torch
+    from repro_torch.core import sharded as S
+    from repro_torch.core.tree import TreeConfig, state_from_numpy
+    cfg = TreeConfig(**SHARDED_PARITY_CFG)
+    st = state_from_numpy(state_np, mesh.device)
+    look = S.routed_lookup_fn(cfg, mesh, depth=3)(
+        S.shard_tree(st, mesh, cfg), S.build_cache(cfg, st, depth=3),
+        _data_shard(torch, mesh, qkeys))
+    wp = S.pjit_phase_fns(cfg, mesh)
+    return dict(lookup=look, waves=[
+        wp(S.shard_tree(st, mesh, cfg),
+           *(_data_shard(torch, mesh, x) for x in w)) for w in waves])
+
+
+def _same_host(got, want, what: str) -> None:
+    """Raise unless two rank results (numpy leaves) agree bit for bit."""
+    if isinstance(want, dict):
+        for k in want:
+            _same_host(got[k], want[k], f"{what}.{k}")
+    elif isinstance(want, (tuple, list)):
+        names = getattr(want, "_fields", range(len(want)))
+        for k, g, w in zip(names, got, want):
+            _same_host(g, w, f"{what}.{k}")
+    elif np.asarray(got).dtype != np.asarray(want).dtype or \
+            not np.array_equal(got, want):
+        raise AssertionError(f"{what}: {got!r} != {want!r}")
+
+
+def phase_sharded_parity(torch) -> None:
+    """Card == CPU on the reference test's mesh (2, 4): 8 gloo ranks on
+    the card and 8 on the CPU give the same routed lookups and waves bit
+    for bit, and each wave's gathered pool and outputs equal the
+    single-process ``write_phase`` on the whole pool and wave."""
+    from repro_torch.core.sharded import tree_pspecs
+    from repro_torch.core.tree import (TreeConfig, TreeState, bulkload,
+                                       state_from_numpy, state_to_numpy)
+    from repro_torch.core.write import write_phase
+    from repro_torch.launch.mesh import run_mesh, to_host
+    cfg = TreeConfig(**SHARDED_PARITY_CFG)
+    rng = np.random.default_rng(1)
+    keys = rng.choice(50_000, size=400, replace=False)
+    vals = rng.integers(0, 1 << 20, size=400)
+    b = 64
+    i32 = np.int32
+    wk, wv = rng.integers(0, 50_000, size=b), rng.integers(0, 100, size=b)
+    new = np.random.default_rng(2).choice(
+        np.setdiff1d(np.arange(50_000), keys), b, replace=False)
+    waves = [(k.astype(i32), v.astype(i32), np.zeros(b, bool),
+              np.ones(b, bool), cs) for k, v, cs in (
+                  (wk, wv, np.zeros(b, i32)),            # the reference's
+                  (new, np.arange(b), _lane_cs(b, cfg.n_cs)))]  # splits
+    st = bulkload(cfg, keys, vals, device="cpu")
+    state_np = dict(zip(TreeState._fields, state_to_numpy(st)))
+    args = (state_np, keys[:b].astype(i32), waves)
+    t0 = time.perf_counter()
+    card = run_mesh(sharded_parity_rank, 2, 4, backend="gloo", args=args,
+                    timeout=SHARDED_TIMEOUT)
+    t1 = time.perf_counter()
+    cpu = run_mesh(sharded_parity_rank, 2, 4, backend="gloo", device="cpu",
+                   args=args, timeout=SHARDED_TIMEOUT)
+    t2 = time.perf_counter()
+    for rank, (g, c) in enumerate(zip(card, cpu)):
+        _same_host(g, c, f"sharded parity rank {rank} card vs CPU")
+    rows = (card[:4], card[4:])        # data index 0 and 1, model 0..3
+    found = np.concatenate([row[0]["lookup"].found for row in rows])
+    value = np.concatenate([row[0]["lookup"].value for row in rows])
+    if not found.all() or not np.array_equal(value, vals[:b]):
+        raise AssertionError("sharded parity: routed lookups missed")
+    specs = tree_pspecs(cfg)
+    splits = []
+    for wi, w in enumerate(waves):
+        want = to_host(write_phase(cfg, state_from_numpy(state_np, "cpu"),
+                                   *(torch.from_numpy(x) for x in w)))
+        per = [[r["waves"][wi] for r in row] for row in rows]
+        for j in range(4):
+            _same_host(per[1][j][0], per[0][j][0],
+                       f"sharded parity wave {wi}: block {j} across data")
+        pool = TreeState(*[np.concatenate([p[0][k] for p in per[0]])
+                           if spec else per[0][0][0][k]
+                           for k, spec in enumerate(specs)])
+        _same_host(pool, want[0], f"sharded parity wave {wi}: the pool")
+        for part in (1, 2, 3):        # done, stats, repair queue
+            got = per[0][0][part]
+            cat = (lambda a, c: np.concatenate([a, c]) if np.ndim(a) else a)
+            if isinstance(got, tuple):
+                got = type(got)(*[cat(a, c) for a, c in
+                                  zip(got, per[1][0][part])])
+            else:
+                got = cat(got, per[1][0][part])
+            _same_host(got, want[part], f"sharded parity wave {wi}.{part}")
+        splits.append(int(want[2].n_leaf_splits))
+    if not splits[1]:
+        raise AssertionError("sharded parity: the split wave split nothing")
+    log(f"sharded parity mesh (2, 4), {SHARDED_PARITY_CFG}: 8 gloo ranks "
+        f"on the card ({t1 - t0:.3f} s) == 8 on the CPU ({t2 - t1:.3f} s) "
+        f"bit for bit: routed lookups of {b} keys at cache depth 3 (all "
+        f"found, the loaded values), and {len(waves)} pjit waves of {b} "
+        f"lanes ({splits} leaf splits), each gathered pool, done, stats "
+        f"and repair queue == the single-process write_phase")
+
+
+class CardMemory:
+    """Sample the card's used memory (every process's) from a thread."""
+
+    def __init__(self, torch, every_s: float = 0.05):
+        import threading
+        self.torch, self.every_s, self.peak = torch, every_s, 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def used(self) -> int:
+        free, total = self.torch.cuda.mem_get_info()
+        return total - free
+
+    def _run(self):
+        while not self._stop.is_set():
+            self.peak = max(self.peak, self.used())
+            self._stop.wait(self.every_s)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+
+
+def deploy_sharded_rank(mesh, cfg, handoff, acked, absent, waves):
+    """One memory server of deploy-1B-sharded.  Clone this rank's block
+    and the image from the launcher's pool (CUDA IPC), drop the pool and
+    tell the launcher; read every acknowledged write back through routed
+    lookups (``acked``: key -> value, None deleted), and 1,024 absent
+    keys; time one all_reduce of a lookup's rows; apply ``waves`` (their
+    reads through routed lookups, their updates through the pjit path)
+    and read everything back again."""
+    import gc
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import sharded as S
+    from repro_torch.kernels.leaf_search.kernel import leaf_search
+    t0 = time.perf_counter()
+    state = handoff.pop("state")
+    height = int(state.height)
+    local = S.shard_tree(state, mesh, cfg)
+    cache = {k: v.clone() for k, v in handoff.pop("image").items()}
+    del state
+    gc.collect()
+    torch.cuda.synchronize()
+    out = dict(rank=mesh.rank, clone_s=time.perf_counter() - t0,
+               block_bytes=sum(x.nbytes for x in local),
+               image_bytes=sum(x.nbytes for x in cache.values()))
+    mesh.notify_parent("cloned")
+
+    look = S.routed_lookup_fn(cfg, mesh, depth=height - 1)
+    wp = S.pjit_phase_fns(cfg, mesh)
+    leaf_search.launches = 0
+
+    def lookups(keys):
+        found, value = [], []
+        for lo in range(0, keys.size, SHARDED_BATCH):
+            r = look(local, cache, torch.from_numpy(
+                keys[lo:lo + SHARDED_BATCH]).to(mesh.device))
+            found.append(r.found.cpu().numpy())
+            value.append(r.value.cpu().numpy())
+        return np.concatenate(found), np.concatenate(value)
+
+    def read_back(want: dict, what: str) -> float:
+        k = np.fromiter(want, np.int64).astype(np.int32)
+        present = np.fromiter((v is not None for v in want.values()), bool)
+        v = np.fromiter((-1 if v is None else v for v in want.values()),
+                        np.int64).astype(np.int32)
+        t = time.perf_counter()
+        found, got = lookups(k)
+        s = time.perf_counter() - t
+        bad = (found != present) | (found & (got != v))
+        if bad.any():
+            raise AssertionError(f"rank {mesh.rank} {what}: "
+                                 f"{int(bad.sum())} of {k.size} keys read "
+                                 f"back wrong, first {k[bad][0]}")
+        return s
+
+    out["readback_s"] = read_back(acked, "read-back")
+    out["readback_n"] = len(acked)
+    found, _ = lookups(absent)
+    if found.any():
+        raise AssertionError(f"rank {mesh.rank}: {int(found.sum())} absent "
+                             "keys found")
+
+    buf = torch.zeros((SHARDED_BATCH, 4 * cfg.fanout + 4),
+                      dtype=torch.int32, device=mesh.device)
+    times = []
+    for _ in range(23):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        dist.all_reduce(buf, group=mesh.mem_group)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    out["allreduce_ms"] = float(np.median(times[3:])) * 1e3
+
+    out["waves"] = []
+    for reads, keys, vals in waves:
+        # the wave's reads: every drawn key is a loaded record, and one
+        # that an earlier phase acknowledged reads its latest value
+        exp = [acked.get(k, "loaded") for k in reads.tolist()]
+        known = np.array([e is not None and e != "loaded" for e in exp])
+        want_v = np.array([e if k else -1 for e, k in zip(exp, known)],
+                          np.int64)
+        found, got = lookups(reads)
+        bad = (found != np.array([e is not None for e in exp])) | \
+            (known & (got != want_v))
+        if bad.any():
+            raise AssertionError(f"rank {mesh.rank}: {int(bad.sum())} of "
+                                 f"a wave's {reads.size} reads wrong")
+        b = keys.size
+        local, done, _, _ = wp(
+            local, torch.from_numpy(keys).to(mesh.device),
+            torch.from_numpy(vals).to(mesh.device),
+            torch.zeros(b, dtype=torch.bool, device=mesh.device),
+            torch.ones(b, dtype=torch.bool, device=mesh.device),
+            torch.from_numpy(_lane_cs(b, cfg.n_cs)).to(mesh.device))
+        if not bool(done.all()):
+            raise AssertionError(f"rank {mesh.rank}: a wave left lanes "
+                                 "undone")
+        acked.update(zip(keys.astype(np.int64).tolist(),
+                         vals.astype(np.int64).tolist()))
+        out["waves"].append(dict(wp.split))
+    out["final_s"] = read_back(acked, "read-back after the waves")
+    out["final_n"] = len(acked)
+    torch.cuda.synchronize()
+    out.update(launches=leaf_search.launches,
+               held_bytes=torch.cuda.memory_allocated(),
+               peak_bytes=torch.cuda.max_memory_allocated())
+    return out
+
+
+def phase_sharded(torch, dep: dict) -> int:
+    """deploy-1B-sharded: deploy-1B's pool, as the earlier phases leave it,
+    on mesh (data 1, model 4), one gloo rank a memory server on the one
+    card.  Each rank clones its block of the pool and an image of every
+    internal level from this process (CUDA IPC), which then drops the
+    pool, so only the write path's coordinator ever holds the whole pool,
+    during a wave.  The ranks read back every write the earlier phases
+    acknowledged and 1,024 absent keys through routed lookups, then apply
+    ``SHARDED_WAVES`` write-intensive waves (seed 3) and read everything
+    back again.  Returns the leaf-search launches summed over the ranks."""
+    from repro_torch.core import sharded as S
+    from repro_torch.core.ops import lookup_batch
+    from repro_torch.launch.mesh import start_mesh
+    from repro_torch.workloads.engine import VAL_MASK
+    from repro_torch.workloads.keygen import draw_keys
+    cfg, spec, keyspace = dep["cfg"], dep["spec"], dep["keyspace"]
+    acked = dep["acked"]
+    t0 = time.perf_counter()
+    state = dep.pop("state")
+    height = int(state.height)
+    n_internal = int(((state.level >= 1) & ~state.free_bit).sum())
+    image = S.build_cache(cfg, state, depth=height - 1, max_rows=n_internal)
+    cached = int(image["valid"].sum())
+    if cached != n_internal:
+        raise AssertionError(f"sharded: image holds {cached} of "
+                             f"{n_internal} internal rows")
+    # absent keys: keys of the keyspace the pool does not hold
+    rng = np.random.default_rng(5)
+    cand = np.unique(rng.integers(0, keyspace, 1 << 16))
+    cand = cand[~np.isin(cand, np.fromiter(acked, np.int64))]
+    r = lookup_batch(cfg, state, torch.from_numpy(cand.astype(np.int32)
+                                                  ).cuda())
+    absent = cand[~r.found.cpu().numpy()][:SHARDED_BATCH].astype(np.int32)
+    if absent.size != SHARDED_BATCH:
+        raise AssertionError(f"sharded: {absent.size} absent keys drawn")
+    del r
+    rng3 = np.random.default_rng(3)
+    counts = spec.batch_counts(SHARDED_BATCH)
+
+    def draw(n):
+        return draw_keys(rng3, n, distribution=spec.distribution,
+                         theta=spec.theta, nspace=spec.load_records,
+                         keyspace=keyspace).astype(np.int32)
+    waves = []
+    for _ in range(SHARDED_WAVES):
+        reads, keys = draw(counts["read"]), draw(counts["update"])
+        waves.append((reads, keys, rng3.integers(0, VAL_MASK, keys.size
+                                                 ).astype(np.int32)))
+    prep_s = time.perf_counter() - t0
+    log(f"sharded deploy-1B-sharded: gloo, {cfg.n_ms} ranks (data 1 x "
+        f"model {cfg.n_ms}), one card; pool {cfg.n_nodes} rows, height "
+        f"{height}; image of {height - 1} internal levels, {cached} rows "
+        f"(every internal row, evicted 0); {len(acked)} acknowledged "
+        f"writes to read back, {absent.size} absent keys; {len(waves)} "
+        f"waves of {SHARDED_BATCH} ops ({counts['read']} reads, "
+        f"{counts['update']} updates, seed 3); set-up {prep_s:.3f} s "
+        f"(the image, the absent keys, the waves' draws)")
+    cloned, parent = set(), {}
+
+    def on_message(rank, _):
+        cloned.add(rank)
+        if len(cloned) == cfg.n_ms:       # every rank has its own block
+            gc.collect()
+            torch.cuda.ipc_collect()
+            torch.cuda.empty_cache()
+            parent.update(held=torch.cuda.memory_allocated(),
+                          card=card.used(), at=time.perf_counter() - t0)
+
+    handoff = dict(state=state, image=image)
+    torch.cuda.empty_cache()        # the earlier phases' cached blocks
+    with CardMemory(torch) as card:
+        ranks = start_mesh(deploy_sharded_rank, 1, cfg.n_ms, backend="gloo",
+                           args=(cfg, handoff, acked, absent, waves),
+                           timeout=SHARDED_TIMEOUT)
+        del state, image, handoff
+        res = ranks.join(on_message)
+    phase_s = time.perf_counter() - t0
+    if len(cloned) != cfg.n_ms or parent["held"] > 1 << 30:
+        raise AssertionError(f"sharded: the launcher still holds "
+                             f"{parent.get('held')} bytes")
+    r0 = res[0]
+    gb = r0["block_bytes"] / 1e9
+    log(f"sharded handoff: each rank cloned its block ({gb:.3f} GB) and "
+        f"the image ({r0['image_bytes'] / 1e9:.3f} GB) in "
+        f"{max(r['clone_s'] for r in res):.3f} s; then the launcher held "
+        f"{parent['held']} bytes and the card {parent['card']} "
+        f"({parent['at'] - prep_s:.3f} s after the spawn began)")
+    n = r0["readback_n"]
+    log(f"sharded read back {n} acknowledged writes of the deploy, cluster,"
+        f" open-loop and chaos phases through routed lookups in batches of "
+        f"{SHARDED_BATCH}: {r0['readback_s']:.3f} s, "
+        f"{n / r0['readback_s']:.1f} routed lookups/s on the host clock; "
+        f"{absent.size} absent keys found False")
+    log(f"sharded all_reduce of a lookup's rows ([{SHARDED_BATCH}, "
+        f"{4 * cfg.fanout + 4}] int32) over the mem row: "
+        f"{r0['allreduce_ms']:.3f} ms (median of 20, rank 0)")
+    for i, w in enumerate(r0["waves"]):
+        blocks = cfg.n_ms - 1
+        log(f"sharded wave {i}: coordinator gather {w['gather_s']:.3f} s "
+            f"({blocks} blocks of {w['block_bytes'] / 1e9:.3f} GB, "
+            f"{w['gather_s'] / blocks * 1e3:.1f} ms a block, "
+            f"{blocks * w['block_bytes'] / w['gather_s'] / 1e9:.3f} GB/s), "
+            f"write_phase {w['write_phase_s']:.3f} s, send-back "
+            f"{w['send_s']:.3f} s ({w['send_s'] / blocks * 1e3:.1f} ms a "
+            f"block)")
+    log(f"sharded read back {r0['final_n']} writes after the waves: "
+        f"{r0['final_s']:.3f} s, {r0['final_n'] / r0['final_s']:.1f} "
+        f"routed lookups/s")
+    launches = [r["launches"] for r in res]
+    held = [r["held_bytes"] for r in res]
+    log(f"sharded leaf_search launches per rank {launches}; "
+        f"max_memory_allocated per rank {[r['peak_bytes'] for r in res]}; "
+        f"memory_allocated outside the wave {held}; card peak used "
+        f"{card.peak} (sampled every {card.every_s} s); phase "
+        f"{phase_s:.3f} s")
+    for r in res:
+        if r["launches"] <= 0 or \
+                r["held_bytes"] > r["block_bytes"] + r["image_bytes"] + \
+                (64 << 20):
+            raise AssertionError(f"sharded rank {r['rank']}: {r}")
+    return sum(launches)
+
+
 def phase_flash(torch, flash_attention, attention_ref, route_of):
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda").manual_seed(11)
@@ -1784,8 +2186,14 @@ def main(argv=None) -> int:
         torch, leaf_search, cfg, dep.pop("state"), spec, dep["keyspace"],
         acked, horizon)
     read_back(torch, dep, "deploy, cluster, open-loop and chaos phases")
+    # the mesh-sharded index: card == CPU on the reference test's mesh,
+    # then deploy-1B's pool over four gloo ranks, one a memory server
+    gc.collect()
+    phase_sharded_parity(torch)
+    sharded_launches = phase_sharded(torch, dep)
     leaf_paths = dict(deploy=dep["launches"], cluster=cluster_launches,
-                      open_loop=open_launches, chaos=chaos_launches)
+                      open_loop=open_launches, chaos=chaos_launches,
+                      sharded=sharded_launches)
     launches = {"leaf_search": dep["launches"]}
     del dep, acked
     gc.collect()                # the index's pool, held by a cycle

@@ -499,3 +499,48 @@ def test_chaos_cpu_snapshot_resumes_on_the_card(tmp_path):
     for x, y in zip(TT.state_to_numpy(card.cluster.state),
                     TT.state_to_numpy(whole.cluster.state)):
         np.testing.assert_array_equal(x, y)
+
+
+# --------------------------------------------------------------------------
+# the mesh-sharded index: gloo ranks on the card == the same ranks on CPU
+# --------------------------------------------------------------------------
+
+def _same_rank_result(got, want, what):
+    if isinstance(want, dict):
+        assert got.keys() == want.keys(), what
+        for k in want:
+            _same_rank_result(got[k], want[k], f"{what}.{k}")
+    elif isinstance(want, (tuple, list)):
+        assert len(got) == len(want), what
+        for i, (g, w) in enumerate(zip(got, want)):
+            _same_rank_result(g, w, f"{what}[{i}]")
+    elif isinstance(want, np.ndarray):
+        assert got.dtype == want.dtype, what
+        np.testing.assert_array_equal(got, want, err_msg=what)
+    else:
+        assert got == want, what
+
+
+def test_sharded_mesh_on_the_card_matches_cpu():
+    """Mesh (2, 4): 8 gloo ranks on the card (each lookup's probe through
+    the leaf-search kernel) give what the same 8 ranks give on the CPU:
+    every lookup case and every pjit wave of tests/test_torch_sharded.py,
+    rank by rank, bit for bit."""
+    import torch_sharded_common as C
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import run_mesh
+    build.build_all(["leaf_search"])    # once here, not in every rank
+    cfg = TT.TreeConfig(**C.CFG_KW)
+    keys, vals, wk, wv = C.draw_records()
+    st = TT.bulkload(cfg, keys, vals, device="cpu")
+    base = dict(zip(TT.TreeState._fields, TT.state_to_numpy(st)))
+    states, lookups, waves = C.make_cases(base, keys, vals, wk, wv)
+    args = (states, lookups, waves, (), False)
+    card = run_mesh(C.sharded_rank, 2, 4, backend="gloo", args=args,
+                    timeout=600)
+    cpu = run_mesh(C.sharded_rank, 2, 4, backend="gloo", device="cpu",
+                   args=args, timeout=600)
+    for rank, (g, c) in enumerate(zip(card, cpu)):
+        assert g["launches"] == len(lookups) and c["launches"] == 0
+        for part in ("lookup", "wave", "coords"):
+            _same_rank_result(g[part], c[part], f"rank {rank} {part}")

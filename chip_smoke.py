@@ -18,7 +18,10 @@ Phases, in order; any failure raises and exits non-zero:
    with leaf ids; flash attention and WKV6 within the reference kernel
    test's tolerances) at the reference kernel test's shapes, a ragged
    shape and the main paths' shapes (flash attention on both of its
-   routes: ``wgmma`` for bf16 at hd 64 and 128, ``fma`` otherwise), and
+   routes: ``wgmma`` for bf16 at hd 64 and 128 without a window,
+   ``fma`` otherwise; with a sliding window at every head dim up to 256,
+   with rows that see no key, whisper-medium's encoder and
+   cross-attention shapes, recurrentgemma-2b's local attention), and
    time kernel, plain version and (for attention) PyTorch's SDPA on the
    device and per eager call (WKV6 in the kernel layout and in the model
    layout the forward passes, which must give the same bits; the leaf
@@ -64,16 +67,35 @@ Phases, in order; any failure raises and exits non-zero:
    again; routed lookups/s, one ``all_reduce``'s ms, each wave's gather,
    write phase and send-back seconds, K1 launches and peak memory per
    rank, and the card's sampled peak;
-6. lm-parity — reduced smollm-135m, granite-3-8b and rwkv6-1.6b in f32:
+6. lm-parity — a reduced model of every family in f32 (``LM_PARITY``):
    the same weights on the card (kernels) and on the CPU (plain
-   versions) give the same prefill, decode and forward logits;
+   versions) give the same prefill (or decode), decode and forward
+   logits;
 7. granite — granite-3-8b at full width in bf16: prefill of 4 × 4096
    tokens (its 40 flash launches all on the ``wgmma`` route), 64 decode
    steps, and prefill + decode == forward at 512 tokens;
 8. rwkv    — rwkv6-1.6b at full width: forward (the median of 3 after a
    cold one) and loss over 4 × 4096 tokens in bf16; step-by-step decode ==
    forward on the bf16 model's first two layers at 64 tokens, and on the
-   whole model in f32 at 256 tokens (see ``RWKV_TOL``).
+   whole model in f32 at 256 tokens (see ``RWKV_TOL``);
+9. qwen    — qwen2-moe-a2.7b at full width in bf16: prefill of 4 × 4096
+   (24 flash launches, ``wgmma``; the share of (token, choice) pairs its
+   capacity drops), 64 decode steps; prefill + decode == forward at 512
+   tokens with capacity_factor = n_experts / top_k (nothing drops);
+10. vlm    — internvl2-1b: forward and loss over 256 patches + 4 × 4096
+   tokens (24 launches, ``wgmma``, hd 64, GQA group 7), prefill 4 × 4096
+   and 64 decode steps;
+11. whisper — whisper-medium: loss over 1,500 frames + 4 × 4096 tokens
+   (72 launches: encoder, causal, cross), decode_init (24) and 64 decode
+   steps; decode == decode_train on a 64-token prompt;
+12. griffin — recurrentgemma-2b: forward and loss over 4 × 4096 tokens
+   (8 launches on the ``fma`` route, window 2048 at hd 256), 64 decode
+   steps on the 2,048-slot rings; decode == forward on the first
+   super-block in bf16 and on the whole model in f32.
+
+Each LM cell prints tokens/s, the device idle share of a profiled decode
+step, peak memory and K2's launches by route, and raises if the launches
+differ from the counts above.
 
 The line before the last is a JSON object with the kernels' numbers; the
 last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -176,6 +198,44 @@ WKV_TOL = {"float32": 1e-4, "bfloat16": 0.15}
 GRANITE_TOL = 0.094
 RWKV_BF16_TOL = 0.0625
 RWKV_TOL = 0.05
+# The new serving cells' consistency checks, on the same argument: bf16
+# logits of the two paths within three bf16 steps at |logit| 4-8 for
+# qwen2-moe's prefill + decode == forward with nothing dropped (an
+# earlier run read 0.036) and whisper's decode == decode_train (0.031).
+# recurrentgemma in bf16: the recurrent blocks' conv and gates round at
+# other points in decode (M=1 products, one einsum over the conv taps)
+# than in the forward (sequential bf16 adds); on the first super-block
+# earlier runs read 0.1328 over 64 tokens at |logit| 5.5, so six steps;
+# the whole model in f32 read 1.76e-5 over 256 tokens (summation order
+# only), held at 1e-3.
+QWEN_TOL = 0.094
+WHISPER_TOL = 0.094
+GRIFFIN_BF16_TOL = 0.1875
+GRIFFIN_TOL = 1e-3
+# K2's window and cross shapes (B, H, KV, Sq, Sk, hd, causal, window,
+# dtype, atol, rtol), all but whisper's on the fma route: a clipping
+# window at every head dim in both dtypes, a window at least S, window 1,
+# Sq > Sk with rows that see no key, windowed full attention over
+# Sq < Sk and Sq = Sk;
+# whisper-medium's encoder (S 1500, ragged against the 128-row tiles) and
+# cross-attention (Sq 4096, Sk 1500) at its loss's shapes on the wgmma
+# route; recurrentgemma-2b's local attention (MQA, hd 256, window 2048)
+# at its forward's shape in both dtypes.
+_F32, _BF16 = ("float32", 2e-5, 2e-5), ("bfloat16", 4e-3, 1e-2)
+FLASH_WINDOWED = [(2, 4, 1, 300, 300, hd, True, 64) + dt
+                  for hd in (16, 64, 128, 256) for dt in (_F32, _BF16)] + [
+                 (1, 4, 2, 200, 200, 256, True, 512) + _BF16,
+                 (2, 2, 1, 77, 77, 64, True, 1) + _F32,
+                 (2, 2, 1, 77, 77, 256, True, 1) + _BF16,
+                 (1, 4, 2, 356, 100, 128, True, 96) + _BF16,
+                 (1, 4, 2, 100, 356, 256, False, 96) + _F32,
+                 (1, 2, 2, 130, 130, 32, False, 17) + _BF16,
+                 (4, 16, 16, 1500, 1500, 64, False, 0) + _BF16,
+                 (4, 16, 16, 4096, 1500, 64, False, 0) + _BF16,
+                 (4, 10, 1, 4096, 4096, 256, True, 2048) + _F32,
+                 (4, 10, 1, 4096, 4096, 256, True, 2048) + _BF16]
+# recurrentgemma-2b's local attention, timed: (B, H, KV, S, hd, window)
+GRIFFIN_ATTN = (4, 10, 1, 4096, 256, 2048)
 
 
 def log(msg: str) -> None:
@@ -1830,6 +1890,79 @@ def phase_flash(torch, flash_attention, attention_ref, route_of):
     return numbers
 
 
+def phase_flash_window(torch, flash_attention, attention_ref, route_of):
+    """K2's sliding window and cross shapes against the
+    plain version (``FLASH_WINDOWED``), then recurrentgemma-2b's local
+    attention timed against its bound and SDPA with the same boolean
+    mask; return its numbers."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    torch.cuda.reset_peak_memory_stats()
+    max_err = 0.0
+    for (b, h, kv, sq, sk, hd, causal, window, dt, atol,
+         rtol) in FLASH_WINDOWED:
+        dtype = getattr(torch, dt)
+        q = torch.randn((b, h, sq, hd), generator=gen, device="cuda").to(
+            dtype)
+        k, v = (torch.randn((b, kv, sk, hd), generator=gen, device="cuda")
+                .to(dtype) for _ in range(2))
+        kw = dict(causal=causal, window=window)
+        got = flash_attention(q, k, v, **kw)
+        want = attention_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        what = (f"flash_attention B={b} H={h} KV={kv} Sq={sq} Sk={sk} "
+                f"hd={hd} causal={causal} window={window} {dt}")
+        err = _check_close(torch, got, want, atol, rtol, what)
+        max_err = max(max_err, err)
+        log(f"kernel  {what} ({route_of(dtype, hd, window)} "
+            f"route): max abs error {err} (atol {atol} rtol {rtol}; max "
+            f"|out| {float(want.float().abs().max())})")
+        del q, k, v, got, want
+        torch.cuda.empty_cache()
+    b, h, kv, s, hd, window = GRIFFIN_ATTN
+    q = torch.randn((b, h, s, hd), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    k, v = (torch.randn((b, kv, s, hd), generator=gen, device="cuda")
+            .to(torch.bfloat16) for _ in range(2))
+    idx = torch.arange(s, device="cuda")
+    mask = ((idx[:, None] >= idx[None, :])
+            & (idx[:, None] - idx[None, :] < window))
+    kernel = lambda: flash_attention(q, k, v, causal=True, window=window)
+    library = lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, enable_gqa=True)
+    # SDPA computes the same function: check it before timing it
+    _check_close(torch, library(), kernel(), 4e-3, 1e-2,
+                 "SDPA with the window mask vs the kernel")
+    ms = device_ms(torch, kernel, reps=5, samples=5)
+    call_ms = host_ms(torch, kernel, reps=5, samples=5)
+    lib_ms = device_ms(torch, library, reps=5, samples=5)
+    plain_ms = host_ms(torch, lambda: attention_ref(
+        q, k, v, causal=True, window=window), reps=2, samples=3)
+    # the work: 4·hd flops per unmasked (query, key) pair and head at the
+    # bf16 tensor rate, against q, k, v and o moved once
+    pairs = sum(min(i + 1, window) for i in range(s))
+    n_ops = 4 * b * h * pairs * hd
+    n_bytes = q.element_size() * (2 * b * s * h * hd + 2 * b * s * kv * hd)
+    ops_ms = n_ops / BF16_TENSOR_OPS_S * 1e3
+    bytes_ms = n_bytes / HBM_BYTES_S * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
+    log(f"kernel  flash_attention B={b} H={h} KV={kv} S={s} hd={hd} "
+        f"window={window} bfloat16 causal (fma route): device {ms:.6f} ms "
+        f"(CUDA graph of 5 calls); per eager call {call_ms:.6f} ms; SDPA "
+        f"with the boolean window mask {lib_ms:.6f} ms (CUDA graph of 5 "
+        f"calls); plain {plain_ms:.6f} ms per eager call; bound "
+        f"{bound_ms:.6f} ms ({pairs} pairs a head, {n_ops} flops at bf16 "
+        f"peak {ops_ms:.6f} ms, {n_bytes} bytes {bytes_ms:.6f} ms); "
+        f"{ms / bound_ms:.3f}x the bound, {ms / lib_ms:.3f}x SDPA; "
+        f"{_peak(torch)}")
+    return dict(route="fma", shape=dict(B=b, H=h, KV=kv, S=s, hd=hd,
+                                        window=window, dtype="bfloat16"),
+                max_abs_err=max_err, ms=ms, host_ms=call_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                library_ms=lib_ms)
+
+
 def phase_wkv(torch, wkv6, wkv6_ref, wkv6_seq):
     gen = torch.Generator(device="cuda").manual_seed(12)
     max_err = 0.0
@@ -1888,37 +2021,46 @@ def phase_wkv(torch, wkv6, wkv6_ref, wkv6_seq):
                 host_ms=call_ms, library_ms=None)
 
 
+# lm-parity's reduced models; recurrentgemma with 5 layers (reduced it has
+# 2, so no super-block and no attention): one super-block, two tail blocks
+LM_PARITY = {"smollm-135m": {}, "granite-3-8b": {}, "rwkv6-1.6b": {},
+             "qwen2-moe-a2.7b": {}, "llama4-scout-17b-a16e": {},
+             "internvl2-1b": {}, "whisper-medium": {},
+             "recurrentgemma-2b": {"n_layers": 5}}
+
+
 def phase_lm_parity(torch, get_reduced, registry, kernels):
-    """Reduced f32 models: the card (kernels) against the CPU (plain
-    versions) on the same weights, within 1e-4."""
+    """Reduced f32 models of every family: the card (kernels) against the
+    CPU (plain versions) on the same weights, within 1e-4."""
     torch.cuda.reset_peak_memory_stats()
-    for name in ("smollm-135m", "granite-3-8b", "rwkv6-1.6b"):
-        cfg = get_reduced(name)
+    for name, over in LM_PARITY.items():
+        cfg = dataclasses.replace(get_reduced(name), **over)
         cpu = registry.build(cfg, device="cpu")
         gpu = registry.build(cfg, device="cuda")
         model = cpu.init(torch.Generator().manual_seed(0))
         model_gpu = copy.deepcopy(model).to("cuda")
         batch = registry.make_batch(cfg, 2, 40,
                                     torch.Generator().manual_seed(1), "cpu")
-        batch_gpu = {"tokens": batch["tokens"].cuda()}
+        batch_gpu = {k: t.cuda() for k, t in batch.items()}
         for kern in kernels:
             kern.launches = 0
         pairs = [("forward", gpu.forward(model_gpu, batch_gpu),
                   cpu.forward(model, batch))]
         steps = batch["tokens"][:, 32:36]
-        if cfg.family == "dense":
-            prompt = {"tokens": batch["tokens"][:, :32]}
-            prompt_gpu = {"tokens": batch_gpu["tokens"][:, :32]}
-            lg, st_g = gpu.prefill(model_gpu, prompt_gpu, 48)
-            lc, st_c = cpu.prefill(model, prompt, 48)
+        if cpu.prefill is not None:
+            # the reference's prefill takes the tokens alone
+            lg, st_g = gpu.prefill(
+                model_gpu, {"tokens": batch_gpu["tokens"][:, :32]}, 48)
+            lc, st_c = cpu.prefill(model, {"tokens": batch["tokens"][:, :32]},
+                                   48)
         else:
-            st_g = gpu.decode_init(model_gpu, batch_gpu, 0)
-            st_c = cpu.decode_init(model, batch, 0)
+            st_g = gpu.decode_init(model_gpu, batch_gpu, 48)
+            st_c = cpu.decode_init(model, batch, 48)
             for i in range(32):
                 lg, st_g = gpu.decode_step(model_gpu, st_g,
                                            batch_gpu["tokens"][:, i])
                 lc, st_c = cpu.decode_step(model, st_c, batch["tokens"][:, i])
-        pairs.append(("prefill" if cfg.family == "dense" else
+        pairs.append(("prefill" if cpu.prefill is not None else
                       "decode to 32", lg, lc))
         for i in range(steps.shape[1]):
             lg, st_g = gpu.decode_step(model_gpu, st_g, steps[:, i].cuda())
@@ -1931,42 +2073,72 @@ def phase_lm_parity(torch, get_reduced, registry, kernels):
                 for what, g, c in pairs}
         if not any(launches.values()):
             raise AssertionError(f"lm-parity {name}: no kernel launched")
-        log(f"lm-parity {name} (reduced, f32): GPU == CPU within 1e-4; max "
-            f"abs errors {errs}; kernel launches {launches}")
+        log(f"lm-parity {name} (reduced{', ' if over else ''}"
+            f"{', '.join(f'{k} {v}' for k, v in over.items())}, f32): GPU "
+            f"== CPU within 1e-4; max abs errors {errs}; kernel launches "
+            f"{launches}")
     log(f"lm-parity {_peak(torch)}")
 
 
-def phase_granite(torch, get, registry, flash_attention):
-    cfg = get("granite-3-8b")
-    api = registry.build(cfg)
-    torch.cuda.reset_peak_memory_stats()
-    gen = torch.Generator(device="cuda").manual_seed(0)
+# --------------------------------------------------------------------------
+# the LM serving cells at full width
+# --------------------------------------------------------------------------
+
+def init_model(torch, api, gen, tag: str):
+    """``api.init(gen)`` on the card, with a line for the config and the
+    parameter count."""
+    cfg = api.cfg
     t0 = time.perf_counter()
     model = api.init(gen)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
-    log(f"granite {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
-        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}, vocab "
-        f"{cfg.vocab}, bf16; {n_params} parameters initialised on the card "
-        f"in {time.perf_counter() - t0:.3f} s")
-    b, s, s_max, steps = 4, 4096, 4160, 64
-    batch = registry.make_batch(cfg, b, s, gen)
+    n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    log(f"{tag:<7} {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab}, {str(cfg.dtype)[6:]}; {n_params} "
+        f"parameters ({n_bytes} bytes) initialised on the card in "
+        f"{time.perf_counter() - t0:.3f} s")
+    return model
+
+
+def reset_flash(flash_attention) -> None:
     flash_attention.launches = 0
     flash_attention.launches_wgmma = 0
     flash_attention.launches_fma = 0
-    t0 = time.perf_counter()
-    logits, st = api.prefill(model, batch, s_max)
-    torch.cuda.synchronize()
-    prefill_s = time.perf_counter() - t0
-    launches = flash_attention.launches
+
+
+def flash_routes(flash_attention) -> dict:
+    """K2's launches since the last reset, by route (raises unless the
+    routes add up)."""
     routes = {"wgmma": flash_attention.launches_wgmma,
               "fma": flash_attention.launches_fma}
-    if launches != cfg.n_layers or routes["wgmma"] != cfg.n_layers \
-            or not bool(torch.isfinite(logits).all()):
-        raise AssertionError(f"granite prefill: launches {launches} by "
-                             f"route {routes}, finite logits "
-                             f"{bool(torch.isfinite(logits).all())}")
-    tok = logits.argmax(-1)
+    if sum(routes.values()) != flash_attention.launches:
+        raise AssertionError(f"flash launches {flash_attention.launches} "
+                             f"!= by route {routes}")
+    return routes
+
+
+def expect_routes(flash_attention, want: dict, what: str) -> dict:
+    """Raise unless K2 launched exactly ``want`` by route since the last
+    reset."""
+    routes = flash_routes(flash_attention)
+    if routes != want:
+        raise AssertionError(f"{what}: flash_attention launches by route "
+                             f"{routes}, expected {want}")
+    return routes
+
+
+def timed(torch, fn):
+    """(fn(), seconds to its end on the device)."""
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def decode_run(torch, api, model, st, tok, steps: int):
+    """``steps`` greedy decode steps from ``tok``: (state, next token,
+    seconds); raises on a non-finite logit."""
     finite = torch.ones((), dtype=torch.bool, device="cuda")
     t0 = time.perf_counter()
     for _ in range(steps):
@@ -1975,37 +2147,110 @@ def phase_granite(torch, get, registry, flash_attention):
         tok = logits.argmax(-1)
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t0
-    if not bool(finite) or st.pos != s + steps:
-        raise AssertionError(f"granite decode: finite {bool(finite)}, pos "
-                             f"{st.pos}")
-    # where a decode step's time goes: the device's busy time against the
-    # host's wall clock, over 4 profiled steps
+    if not bool(finite):
+        raise AssertionError(f"{api.cfg.name} decode: non-finite logits")
+    return st, tok, decode_s
+
+
+def profile_decode(torch, api, model, st, tok, tag: str, n: int = 4):
+    """Where a decode step's time goes: the device's busy time against the
+    host's wall clock over ``n`` profiled steps, and the top ops by device
+    time; returns the state and the idle share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t1 = time.perf_counter()
-        for _ in range(4):
+        for _ in range(n):
             logits, st = api.decode_step(model, st, tok)
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t1) * 1e3 / 4
+        wall_ms = (time.perf_counter() - t1) * 1e3 / n
     # device busy: the kernels' own time; the top ops: device time
     # attributed to the PyTorch ops that launched it
     events = prof.key_averages()
     busy_ms = sum(e.self_device_time_total for e in events
-                  if e.device_type != DeviceType.CPU) / 1e3 / 4
+                  if e.device_type != DeviceType.CPU) / 1e3 / n
     top = sorted((e for e in events if e.device_type == DeviceType.CPU),
                  key=lambda e: -e.self_device_time_total)[:3]
-    log(f"granite decode step (profiled): wall {wall_ms:.3f} ms, device "
-        f"busy {busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.3f}; "
-        "top device time by op: " + "; ".join(
-            f"{e.key[:40]} {e.self_device_time_total / 4e3:.3f} ms"
-            for e in top))
-    log(f"granite prefill {b} x {s} tokens in {prefill_s:.3f} s = "
+    idle = 1 - busy_ms / wall_ms
+    log(f"{tag:<7} decode step (profiled): wall {wall_ms:.3f} ms, device "
+        f"busy {busy_ms:.3f} ms, idle share {idle:.3f}; top device time by "
+        "op: " + "; ".join(f"{e.key[:40]} {e.self_device_time_total / (n * 1e3):.3f} ms"
+                           for e in top))
+    return st, idle
+
+
+class DropCount:
+    """Within the block, count on the device (no host sync) the (token,
+    choice) pairs that ``moe_ffn`` routes and those its capacity drops,
+    by wrapping ``moe.route``.  ``expect`` raises unless the pairs are the
+    given number, so a ``moe_ffn`` that stops routing through
+    ``moe.route`` cannot read as no drops."""
+
+    def __init__(self, torch, moe):
+        self.moe = moe
+        self.dropped = torch.zeros((), dtype=torch.int64, device="cuda")
+        self.pairs = 0
+
+    def __enter__(self):
+        route = self.route = self.moe.route
+
+        def counted(params, xt, cfg):
+            out = route(params, xt, cfg)
+            self.dropped += (out[2] >= self.moe.capacity(
+                cfg, xt.shape[0])).sum()
+            self.pairs += out[2].numel()
+            return out
+        self.moe.route = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.route
+
+    def share(self) -> float:
+        return int(self.dropped) / max(self.pairs, 1)
+
+    def expect(self, pairs: int, what: str) -> None:
+        if self.pairs != pairs:
+            raise AssertionError(f"{what}: counted {self.pairs} (token, "
+                                 f"choice) pairs, expected {pairs}")
+
+
+def serve_transformer(torch, api, model, batch, fa, tag: str, want: dict,
+                      s_max: int = 4160, steps: int = 64) -> int:
+    """The transformer serving cell: prefill of ``batch``'s tokens (K2 by
+    route as ``want``), ``steps`` decode steps, one profiled step; returns
+    K2's launches in the prefill by route."""
+    b, s = batch["tokens"].shape
+    reset_flash(fa)
+    (logits, st), prefill_s = timed(torch, lambda: api.prefill(
+        model, {"tokens": batch["tokens"]}, s_max))
+    routes = expect_routes(fa, want, f"{tag} prefill")
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{tag} prefill: non-finite logits")
+    st, tok, decode_s = decode_run(torch, api, model, st, logits.argmax(-1),
+                                   steps)
+    if st.pos != s + steps:
+        raise AssertionError(f"{tag} decode: pos {st.pos}")
+    st, idle = profile_decode(torch, api, model, st, tok, tag)
+    log(f"{tag:<7} prefill {b} x {s} tokens in {prefill_s:.3f} s = "
         f"{b * s / prefill_s:.1f} tokens/s; flash_attention launches "
-        f"{launches}, by route {routes}; decode {steps} steps at batch {b} (s_max {s_max}) in "
-        f"{decode_s:.3f} s = {b * steps / decode_s:.1f} tokens/s; logits "
-        f"finite; {_peak(torch)}")
+        f"{sum(routes.values())}, by route {routes}; decode {steps} steps "
+        f"at batch {b} (s_max {s_max}) in {decode_s:.3f} s = "
+        f"{b * steps / decode_s:.1f} tokens/s; idle share {idle:.3f}; "
+        f"logits finite; {_peak(torch)}")
+    return routes
+
+
+def phase_granite(torch, get, registry, flash_attention):
+    cfg = get("granite-3-8b")
+    api = registry.build(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = init_model(torch, api, gen, "granite")
+    batch = registry.make_batch(cfg, 4, 4096, gen)
+    routes = serve_transformer(torch, api, model, batch, flash_attention,
+                               "granite", {"wgmma": cfg.n_layers, "fma": 0})
     # prefill + one decode step == forward at the last two positions
     toks = batch["tokens"][:1, :512]
     full = api.forward(model, {"tokens": toks})
@@ -2018,14 +2263,193 @@ def phase_granite(torch, get, registry, flash_attention):
     log(f"granite 512-token prompt: prefill vs forward max abs error {ep}, "
         f"decode_step vs forward {ed} (atol {GRANITE_TOL}; max |logit| "
         f"{float(full[:, 510:].float().abs().max())})")
-    return launches
+    return {"granite_prefill": routes}
 
 
-def _check_decode(torch, api, model, toks, atol: float, what: str):
-    """Feed ``toks`` [1, T] through ``decode_step`` one at a time against
-    one ``forward``; raise unless the logits agree within ``atol``."""
-    full = api.forward(model, {"tokens": toks})
-    st = api.decode_init(model, {"tokens": toks}, 0)
+def phase_qwen(torch, get, registry, fa, moe):
+    """qwen2-moe-a2.7b serving at its published width (bf16, seed 0):
+    prefill 4 × 4096 (24 K2 launches, wgmma), 64 decode steps at batch 4;
+    the share of (token, choice) pairs the prefill's capacity drops, read
+    from a second, untimed prefill of the same tokens; then,
+    with capacity_factor = n_experts / top_k (nothing drops), prefill +
+    decode == forward over 512 tokens."""
+    cfg = get("qwen2-moe-a2.7b")
+    api = registry.build(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = init_model(torch, api, gen, "qwen")
+    batch = registry.make_batch(cfg, 4, 4096, gen)
+    routes = serve_transformer(torch, api, model, batch, fa, "qwen",
+                               {"wgmma": cfg.n_layers, "fma": 0})
+    with DropCount(torch, moe) as drops:
+        api.prefill(model, {"tokens": batch["tokens"]}, 4096)
+    drops.expect(cfg.n_layers * 4 * 4096 * cfg.top_k, "qwen prefill")
+    log(f"qwen    the prefill's capacity is {moe.capacity(cfg, 4 * 4096)} "
+        f"slots an expert (capacity_factor {cfg.capacity_factor}; 1 at "
+        f"decode batch 4): it dropped {drops.share():.6f} of its "
+        f"{drops.pairs} (token, choice) pairs")
+    nodrop = registry.build(dataclasses.replace(
+        cfg, capacity_factor=cfg.n_experts / cfg.top_k))
+    toks = batch["tokens"][:1, :512]
+    full = nodrop.forward(model, {"tokens": toks})
+    lp, st = nodrop.prefill(model, {"tokens": toks[:, :511]}, 512)
+    ld, _ = nodrop.decode_step(model, st, toks[:, 511])
+    ep = _check_close(torch, lp, full[:, 510], QWEN_TOL, 0.0,
+                      "qwen prefill vs forward")
+    ed = _check_close(torch, ld, full[:, 511], QWEN_TOL, 0.0,
+                      "qwen decode vs forward")
+    log(f"qwen    512-token prompt, capacity_factor {cfg.n_experts / cfg.top_k}"
+        f" (no drops): prefill vs forward max abs error {ep}, decode_step vs "
+        f"forward {ed} (atol {QWEN_TOL}; max |logit| "
+        f"{float(full[:, 510:].float().abs().max())})")
+    return {"qwen_prefill": routes}
+
+
+def phase_internvl(torch, get, registry, fa):
+    """internvl2-1b at its published width (bf16, seed 0): forward and
+    loss over 256 patches + 4096 tokens at batch 4 (K2 on wgmma at hd 64,
+    GQA group 7, S 4352), then prefill 4 × 4096 and 64 decode steps."""
+    cfg = get("internvl2-1b")
+    api = registry.build(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = init_model(torch, api, gen, "vlm")
+    batch = registry.make_batch(cfg, 4, 4096, gen)
+    b, s = batch["tokens"].shape
+    p = batch["patches"].shape[1]
+    want = {"wgmma": cfg.n_layers, "fma": 0}
+    reset_flash(fa)
+    logits, fwd_s = timed(torch, lambda: api.forward(model, batch))
+    fwd_routes = expect_routes(fa, want, "vlm forward")
+    if logits.shape != (b, p + s, cfg.vocab) \
+            or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"vlm forward: logits {tuple(logits.shape)}")
+    del logits
+    loss, loss_s = timed(torch, lambda: float(api.loss(model, batch)))
+    if not math.isfinite(loss):
+        raise AssertionError(f"vlm loss {loss}")
+    log(f"vlm     forward {b} x ({p} patches + {s} tokens) in {fwd_s:.3f} s "
+        f"= {b * (p + s) / fwd_s:.1f} tokens/s; flash_attention launches "
+        f"{sum(fwd_routes.values())}, by route {fwd_routes}; loss {loss} in "
+        f"{loss_s:.3f} s; {_peak(torch)}")
+    return {"internvl_forward": fwd_routes,
+            "internvl_prefill": serve_transformer(torch, api, model, batch,
+                                                  fa, "vlm", want)}
+
+
+def phase_whisper(torch, get, registry, fa):
+    """whisper-medium at its published width (bf16, seed 0): loss over
+    1,500 frames + 4 × 4096 tokens (72 K2 launches: the encoder's, the
+    decoder's causal and its cross-attention, all wgmma), decode_init (the
+    encoder, 24) and 64 decode steps at batch 4; decode == decode_train
+    on a 64-token prompt."""
+    cfg = get("whisper-medium")
+    api = registry.build(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = init_model(torch, api, gen, "whisper")
+    batch = registry.make_batch(cfg, 4, 4096, gen)
+    b, s = batch["tokens"].shape
+    t = batch["frames"].shape[1]
+    n_enc = cfg.n_enc_layers
+    reset_flash(fa)
+    loss, loss_s = timed(torch, lambda: float(api.loss(model, batch)))
+    loss_routes = expect_routes(fa, {"wgmma": n_enc + 2 * cfg.n_layers,
+                                     "fma": 0}, "whisper loss")
+    if not math.isfinite(loss):
+        raise AssertionError(f"whisper loss {loss}")
+    s_max, steps = 4160, 64
+    reset_flash(fa)
+    st, init_s = timed(torch, lambda: api.decode_init(model, batch, s_max))
+    init_routes = expect_routes(fa, {"wgmma": n_enc, "fma": 0},
+                                "whisper decode_init")
+    st, tok, decode_s = decode_run(torch, api, model, st,
+                                   batch["tokens"][:, 0], steps)
+    st, idle = profile_decode(torch, api, model, st, tok, "whisper")
+    log(f"whisper loss over {b} x ({t} frames + {s} tokens) {loss} in "
+        f"{loss_s:.3f} s = {b * (t + s) / loss_s:.1f} tokens/s; "
+        f"flash_attention launches {sum(loss_routes.values())}, by route "
+        f"{loss_routes}; decode_init (encode {b} x {t} frames, cross K/V) "
+        f"in {init_s:.3f} s, launches by route {init_routes}; decode "
+        f"{steps} steps at batch {b} (s_max {s_max}) in {decode_s:.3f} s = "
+        f"{b * steps / decode_s:.1f} tokens/s; idle share {idle:.3f}; "
+        f"logits finite; {_peak(torch)}")
+    prompt = {"tokens": batch["tokens"][:1, :64],
+              "frames": batch["frames"][:1]}
+    err, top = _check_decode(torch, api, model, prompt, WHISPER_TOL,
+                             "whisper decode vs decode_train")
+    log(f"whisper 64-token prompt: decode_step vs decode_train max abs "
+        f"error {err} (atol {WHISPER_TOL}; max |logit| {top})")
+    return {"whisper_loss": loss_routes,
+            "whisper_decode_init": init_routes}
+
+
+def phase_griffin(torch, get, registry, fa, rglru):
+    """recurrentgemma-2b at its published width (bf16, seed 0): forward
+    and loss over 4 × 4096 tokens (8 K2 launches, fma: window 2048 at hd
+    256), 64 decode steps at batch 4 on the 2,048-slot rings; decode ==
+    forward on the first super-block in bf16 over 64 tokens and on the
+    whole model in f32 over 256 tokens (as rwkv6's cell)."""
+    cfg = get("recurrentgemma-2b")
+    api = registry.build(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = init_model(torch, api, gen, "griffin")
+    batch = registry.make_batch(cfg, 4, 4096, gen)
+    b, s = batch["tokens"].shape
+    want = {"wgmma": 0, "fma": rglru.n_super(cfg)}
+    reset_flash(fa)
+    logits, fwd_s = timed(torch, lambda: api.forward(model, batch))
+    routes = expect_routes(fa, want, "griffin forward")
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("griffin forward: non-finite logits")
+    del logits
+    loss, loss_s = timed(torch, lambda: float(api.loss(model, batch)))
+    if not math.isfinite(loss):
+        raise AssertionError(f"griffin loss {loss}")
+    steps = 64
+    st = api.decode_init(model, batch, 0)
+    st, tok, decode_s = decode_run(torch, api, model, st,
+                                   batch["tokens"][:, 0], steps)
+    st, idle = profile_decode(torch, api, model, st, tok, "griffin")
+    log(f"griffin forward {b} x {s} tokens in {fwd_s:.3f} s = "
+        f"{b * s / fwd_s:.1f} tokens/s; flash_attention launches "
+        f"{sum(routes.values())}, by route {routes}; loss {loss} in "
+        f"{loss_s:.3f} s; decode {steps} steps at batch {b} (rings of "
+        f"{cfg.window}) in {decode_s:.3f} s = {b * steps / decode_s:.1f} "
+        f"tokens/s; idle share {idle:.3f}; logits finite; {_peak(torch)}")
+    toks = batch["tokens"][:1, :256]
+    head = rglru.GriffinParams(model.embed, list(model.supers[:1]),
+                               list(model.tail[:1]), model.ln_f)
+    sub = registry.build(dataclasses.replace(cfg, n_layers=3))
+    err, top = _check_decode(torch, sub, head, {"tokens": toks[:, :64]},
+                             GRIFFIN_BF16_TOL,
+                             "griffin bf16 decode vs forward")
+    log(f"griffin 64-token prompt, bf16 weights, first super-block: "
+        f"decode_step vs forward max abs error {err} (atol "
+        f"{GRIFFIN_BF16_TOL}; max |logit| {top})")
+    del model, head, st
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    api = registry.build(cfg32)
+    torch.cuda.reset_peak_memory_stats()
+    model = api.init(torch.Generator(device="cuda").manual_seed(0))
+    err, top = _check_decode(torch, api, model, {"tokens": toks},
+                             GRIFFIN_TOL, "griffin f32 decode vs forward")
+    log(f"griffin 256-token prompt, f32 weights: decode_step vs forward max "
+        f"abs error {err} (atol {GRIFFIN_TOL}; max |logit| {top}); "
+        f"{_peak(torch)}")
+    return {"recurrentgemma_forward": routes}
+
+
+def _check_decode(torch, api, model, batch, atol: float, what: str):
+    """Feed ``batch["tokens"]`` [1, T] through ``decode_step`` one at a
+    time against one ``forward`` of ``batch``; raise unless the logits
+    agree within ``atol``."""
+    toks = batch["tokens"]
+    full = api.forward(model, batch)
+    st = api.decode_init(model, batch, toks.shape[1])
     outs = []
     for i in range(toks.shape[1]):
         lg, st = api.decode_step(model, st, toks[:, i])
@@ -2089,8 +2513,8 @@ def phase_rwkv(torch, get, registry, wkv6):
     head = rwkv6.RWKV6LM(list(model.layers[:depth]), **{
         n: getattr(model, n) for n in rwkv6.MODEL_FIELDS})
     sub = registry.build(dataclasses.replace(cfg, n_layers=depth))
-    err, top = _check_decode(torch, sub, head, toks[:, :64], RWKV_BF16_TOL,
-                             "rwkv bf16 decode vs forward")
+    err, top = _check_decode(torch, sub, head, {"tokens": toks[:, :64]},
+                             RWKV_BF16_TOL, "rwkv bf16 decode vs forward")
     log(f"rwkv    64-token prompt, bf16 weights, first {depth} layers: "
         f"decode_step vs forward max abs error {err} (atol "
         f"{RWKV_BF16_TOL}; max |logit| {top})")
@@ -2102,7 +2526,7 @@ def phase_rwkv(torch, get, registry, wkv6):
     api = registry.build(cfg32)
     torch.cuda.reset_peak_memory_stats()
     model = api.init(torch.Generator(device="cuda").manual_seed(0))
-    err, top = _check_decode(torch, api, model, toks, RWKV_TOL,
+    err, top = _check_decode(torch, api, model, {"tokens": toks}, RWKV_TOL,
                              "rwkv f32 decode vs forward")
     log(f"rwkv    256-token prompt, f32 weights: decode_step vs forward "
         f"max abs error {err} (atol {RWKV_TOL}; max |logit| {top}); "
@@ -2134,7 +2558,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels.rwkv_scan.kernel import wkv6
     from repro_torch.kernels.rwkv_scan.ops import wkv6_seq
     from repro_torch.kernels.rwkv_scan.ref import wkv6_ref
-    from repro_torch.models import registry
+    from repro_torch.models import moe, registry, rglru
     from repro_torch.workloads import engine, get_preset
 
     # every float32 matmul in full float32 (the GPU-vs-CPU comparisons)
@@ -2163,6 +2587,8 @@ def main(argv=None) -> int:
                "flash_attention": phase_flash(torch, flash_attention,
                                               attention_ref, _route),
                "wkv6": phase_wkv(torch, wkv6, wkv6_ref, wkv6_seq)}
+    numbers["flash_attention"]["windowed"] = phase_flash_window(
+        torch, flash_attention, attention_ref, _route)
     torch.cuda.empty_cache()
 
     # 4. the GPU run agrees with the CPU run
@@ -2200,13 +2626,19 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     log(f"deploy  freed: memory_allocated {torch.cuda.memory_allocated()}")
 
-    # 6.-8. the LM serving paths
+    # 6.-12. the LM serving paths
     phase_lm_parity(torch, get_reduced, registry, (flash_attention, wkv6))
-    launches["flash_attention"] = phase_granite(torch, get, registry,
-                                                flash_attention)
+    flash_paths = phase_granite(torch, get, registry, flash_attention)
     gc.collect()
     torch.cuda.empty_cache()
     launches["wkv6"] = phase_rwkv(torch, get, registry, wkv6)
+    for phase, args in ((phase_qwen, (moe,)), (phase_internvl, ()),
+                        (phase_whisper, ()), (phase_griffin, (rglru,))):
+        gc.collect()
+        torch.cuda.empty_cache()
+        flash_paths.update(phase(torch, get, registry, flash_attention,
+                                 *args))
+    launches["flash_attention"] = sum(flash_paths["granite_prefill"].values())
 
     replaces = {
         "leaf_search": "src/repro/kernels/leaf_search/kernel.py:48",
@@ -2218,6 +2650,11 @@ def main(argv=None) -> int:
                     **numbers[name])
                for name in names]
     kernels[0]["launches_by_path"] = leaf_paths
+    kernels[1]["launches_by_path"] = {
+        path: sum(routes.values()) for path, routes in flash_paths.items()}
+    kernels[1]["launches_by_route"] = {
+        route: sum(r[route] for r in flash_paths.values())
+        for route in ("wgmma", "fma")}
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,36 +1,48 @@
 // Causal or full grouped-query attention with an online softmax, for
-// Hopper (sm_90a).  Replaces the Pallas TPU kernel
-// repro/kernels/flash_attention/kernel.py::flash_attention.  Two kernels
+// Hopper (sm_90a), optionally over a sliding window.  Replaces the Pallas
+// TPU kernel repro/kernels/flash_attention/kernel.py::flash_attention and
+// the window of the reference's _sdpa_naive/_sdpa_chunked
+// (repro/models/attention.py), which that kernel lacks.  Two kernels
 // share the entry point flash_attention_launch, and the caller names the
-// route: "wgmma" (bf16 at head dims 64 and 128, on the tensor cores; see
-// flash_attention_wgmma.cuh) and "fma" (below: f32 at every head dim, bf16
-// at 16 and 32).
+// route: "wgmma" (bf16 at head dims 64 and 128 without a window, on the
+// tensor cores; see flash_attention_wgmma.cuh) and "fma" (below: every
+// other call, f32 and bf16 at head dims 16 to 256).
 //
 // The FMA kernel:
 // For each (b, h, query row i), with g = h / (H / KV) the shared KV head:
 //   s_j = (q_i . k_j) * hd^-0.5,   masked to NEG_INF where causal && j > i
+//                                  or window && i - j >= window
 //   o_i = sum_j softmax(s)_j v_j
 // with the running max m, the running sum l and the accumulator acc in f32
 // (P is never rounded to the input type), and o written in q's dtype.
 //
 // Design (simple and right first):
-//   * one block of 256 threads per (64-row query tile, h, b);
-//   * each query row belongs to 4 neighbouring threads; thread t of the
-//     four owns the float4 chunks t, t+4, t+8, ... of the head dim, so it
-//     keeps hd/4 query values and hd/4 accumulators in registers, and the
-//     four partial dot products are summed with two __shfl_xor_sync;
-//   * K and V tiles of 32 rows are staged in shared memory as f32, read
+//   * one block of 256 threads per (query tile, h, b);
+//   * each query row belongs to kTPR neighbouring threads (4, or 8 at hd
+//     256, so a thread holds at most 32 query values and 32 accumulators
+//     in registers: the tile is 64 rows, 32 at hd 256); thread t of the
+//     group owns the float4 chunks t, t+kTPR, t+2*kTPR, ... of the head
+//     dim, and the partial dot products are summed with __shfl_xor_sync;
+//   * K and V tiles of kBK rows (32, 16 at hd 256, so both fit the 48 KB
+//     of static shared memory) are staged in shared memory as f32, read
 //     back as float4 (one 16-byte load feeds four FMAs);
 //   * with causal masking the loop stops after the tile that holds the
 //     block's last query row, so tiles above the diagonal are skipped;
+//   * the window is a template flag, so calls without one run the loop
+//     and mask above unchanged; with one, the loop also starts at the
+//     tile holding the first row's first windowed key, and masked keys
+//     in the tiles visited get probability 0 once a row has seen a key
+//     (a row that sees no key at all, i >= Sk + window - 1, averages
+//     every key as the reference's softmax over NEG_INF does, so a block
+//     holding one visits every tile);
 //   * the ragged edges (Sq and Sk not multiples of the tiles) are masked:
 //     keys past Sk get probability 0, rows past Sq are not stored.
 // Every tensor is addressed through (batch, seq, head) strides in elements
 // with the head dim contiguous, so the model's [B,S,H,hd] layout and the
 // kernel layout [B,H,S,hd] both run without a copy.
 //
-// Bound: at the dense prefill's shapes the function needs 4*B*H*pairs*hd
-// flops (pairs = the unmasked (i, j) pairs), which at the H100's bf16
+// Bound: at the models' shapes the function needs 4*B*H*pairs*hd flops
+// (pairs = the unmasked (i, j) pairs), which at the H100's bf16
 // tensor-core rate take longer than moving q, k, v and o once; this kernel
 // runs on the f32 FMA units (f32 must stay exact to 2e-5, which TF32
 // tensor cores cannot give) and is far from that bound.
@@ -38,17 +50,21 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
-
 #include "flash_attention_wgmma.cuh"
 
 namespace {
 
 constexpr float kNegInf = -1e30f;   // the reference's NEG_INF, not -inf
-constexpr int kBQ = 64;             // query rows per block
-constexpr int kBK = 32;             // key rows per shared-memory tile
-constexpr int kTPR = 4;             // threads per query row
-constexpr int kThreads = kBQ * kTPR;
+constexpr int kThreads = 256;       // threads per block
+
+// The tile shapes at head dim HD: threads per query row, query rows per
+// block, key rows per shared-memory tile.
+template <int HD>
+struct FmaTile {
+  static constexpr int kTPR = HD >= 256 ? 8 : 4;
+  static constexpr int kBQ = kThreads / kTPR;
+  static constexpr int kBK = HD >= 256 ? 16 : 32;
+};
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -61,12 +77,15 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
 
 using fa_wgmma::Strides;
 
-template <typename T, int HD>
+template <typename T, int HD, bool kWindow>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, int sq, int sk,
                  int group, Strides qs, Strides ks, Strides vs, Strides os,
-                 float scale, int causal) {
+                 float scale, int causal, int window) {
+  constexpr int kTPR = FmaTile<HD>::kTPR;
+  constexpr int kBQ = FmaTile<HD>::kBQ;
+  constexpr int kBK = FmaTile<HD>::kBK;
   constexpr int kChunks = HD / 4;            // float4 chunks per row
   constexpr int kMine = kChunks / kTPR;      // chunks per thread
   __shared__ float4 k_tile[kBK][kChunks];
@@ -98,8 +117,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const T* kbase = k + b * ks.b + g * ks.h;
   const T* vbase = v + b * vs.b + g * vs.h;
+  // with a window the block's first row sees keys from q0 - window + 1;
+  // a block holding a row that sees no key (its last stored row,
+  // min(q0 + kBQ, sq) - 1, is window or more past Sk - 1) visits every key
+  int kbegin = 0;
+  if (kWindow && min(q0 + kBQ, sq) - window < sk)
+    kbegin = (max(0, q0 - window + 1) / kBK) * kBK;
   const int kend = causal ? min(sk, q0 + kBQ) : sk;
-  for (int k0 = 0; k0 < kend; k0 += kBK) {
+  for (int k0 = kbegin; k0 < kend; k0 += kBK) {
     __syncthreads();                          // the last tile is consumed
     for (int e = tid; e < kBK * kChunks; e += kThreads) {
       const int j = e / kChunks, d = 4 * (e % kChunks), kj = k0 + j;
@@ -130,10 +155,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         dot = fmaf(qr[c].z, kk.z, dot);
         dot = fmaf(qr[c].w, kk.w, dot);
       }
-      dot += __shfl_xor_sync(0xffffffffu, dot, 1);
-      dot += __shfl_xor_sync(0xffffffffu, dot, 2);
+#pragma unroll
+      for (int off = 1; off < kTPR; off <<= 1)
+        dot += __shfl_xor_sync(0xffffffffu, dot, off);
       const int kj = k0 + j;
-      s[j] = (causal && kj > qi) ? kNegInf : dot * scale;
+      const bool masked =
+          (causal && kj > qi) || (kWindow && qi - kj >= window);
+      s[j] = masked ? kNegInf : dot * scale;
       if (kj < sk) m_new = fmaxf(m_new, s[j]);
     }
     const float alpha = expf(m - m_new);
@@ -178,65 +206,68 @@ template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int b, int h, int sq, int sk, int group, Strides qs,
                    Strides ks, Strides vs, Strides os, float scale,
-                   int causal, cudaStream_t stream) {
+                   int causal, int window, cudaStream_t stream) {
+  constexpr int kBQ = FmaTile<HD>::kBQ;
   dim3 grid((sq + kBQ - 1) / kBQ, h, b);
-  flash_fwd_kernel<T, HD><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), sq, sk, group, qs, ks,
-      vs, os, scale, causal);
+  if (window > 0)
+    flash_fwd_kernel<T, HD, true><<<grid, kThreads, 0, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(o), sq, sk, group, qs, ks,
+        vs, os, scale, causal, window);
+  else
+    flash_fwd_kernel<T, HD, false><<<grid, kThreads, 0, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(o), sq, sk, group, qs, ks,
+        vs, os, scale, causal, 0);
   return cudaGetLastError();
 }
 
-// f32 at every head dim; bf16 only at 16 and 32 (at 64 and 128 bf16 takes
-// the wgmma route, so those instantiations are not built).
+// Both dtypes at every head dim: bf16 at 64 and 128 comes here too when
+// the call has a window.
 template <typename T>
 cudaError_t dispatch(int hd, const void* q, const void* k, const void* v,
                      void* o, int b, int h, int sq, int sk, int group,
                      Strides qs, Strides ks, Strides vs, Strides os,
-                     float scale, int causal, cudaStream_t stream) {
-  constexpr bool kAllDims = std::is_same<T, float>::value;
+                     float scale, int causal, int window,
+                     cudaStream_t stream) {
+#define FA_CASE(HD)                                                          \
+  case HD:                                                                  \
+    return launch<T, HD>(q, k, v, o, b, h, sq, sk, group, qs, ks, vs, os,   \
+                         scale, causal, window, stream);
   switch (hd) {
-    case 16:
-      return launch<T, 16>(q, k, v, o, b, h, sq, sk, group, qs, ks, vs, os,
-                           scale, causal, stream);
-    case 32:
-      return launch<T, 32>(q, k, v, o, b, h, sq, sk, group, qs, ks, vs, os,
-                           scale, causal, stream);
-    case 64:
-      if constexpr (kAllDims)
-        return launch<T, 64>(q, k, v, o, b, h, sq, sk, group, qs, ks, vs,
-                             os, scale, causal, stream);
-      return cudaErrorInvalidValue;
-    case 128:
-      if constexpr (kAllDims)
-        return launch<T, 128>(q, k, v, o, b, h, sq, sk, group, qs, ks, vs,
-                              os, scale, causal, stream);
-      return cudaErrorInvalidValue;
+    FA_CASE(16)
+    FA_CASE(32)
+    FA_CASE(64)
+    FA_CASE(128)
+    FA_CASE(256)
     default:
       return cudaErrorInvalidValue;
   }
+#undef FA_CASE
 }
 
 }  // namespace
 
 // q [B,H,Sq,hd], k/v [B,KV,Sk,hd], o [B,H,Sq,hd] given as element strides
-// (batch, seq, head) with the head dim contiguous; dtype 0 = f32,
-// 1 = bf16 (q, k, v and o alike); route 0 = the FMA kernel, 1 = the wgmma
-// kernel (bf16, hd 64 or 128, every stride of a dim longer than 1 and
-// every base 16-byte aligned).  Returns the launch's cudaError_t; a route
-// that does not take the arguments is cudaErrorInvalidValue.
+// (batch, seq, head) with the head dim contiguous; window 0 = none, else
+// row i sees keys j with i - j < window; dtype 0 = f32, 1 = bf16 (q, k, v
+// and o alike); route 0 = the FMA kernel (hd 16, 32, 64, 128 or 256),
+// 1 = the wgmma kernel (bf16, hd 64 or 128, no window, every stride of a
+// dim longer than 1 and every base 16-byte aligned).  Returns the launch's cudaError_t; a route that does
+// not take the arguments is cudaErrorInvalidValue.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, int b, int h,
     int kvh, int sq, int sk, int hd, int64_t qsb, int64_t qss, int64_t qsh,
     int64_t ksb, int64_t kss, int64_t ksh, int64_t vsb, int64_t vss,
     int64_t vsh, int64_t osb, int64_t oss, int64_t osh, float scale,
-    int causal, int dtype, int route, void* stream) {
+    int causal, int window, int dtype, int route, void* stream) {
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh},
       os{osb, oss, osh};
   const int group = h / kvh;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (window < 0) return cudaErrorInvalidValue;
   if (route == 1) {
-    if (dtype != 1) return cudaErrorInvalidValue;
+    if (dtype != 1 || window != 0) return cudaErrorInvalidValue;
     if (hd == 64)
       return fa_wgmma::launch<64>(q, k, v, o, b, h, kvh, sq, sk, qs, ks, vs,
                                   os, scale, causal, st);
@@ -248,9 +279,9 @@ extern "C" int flash_attention_launch(
   if (route != 0) return cudaErrorInvalidValue;
   if (dtype == 0)
     return dispatch<float>(hd, q, k, v, o, b, h, sq, sk, group, qs, ks, vs,
-                           os, scale, causal, st);
+                           os, scale, causal, window, st);
   if (dtype == 1)
     return dispatch<__nv_bfloat16>(hd, q, k, v, o, b, h, sq, sk, group, qs,
-                                   ks, vs, os, scale, causal, st);
+                                   ks, vs, os, scale, causal, window, st);
   return cudaErrorInvalidValue;
 }

@@ -5,7 +5,10 @@ ctypes.
   ``repro/kernels/flash_attention/kernel.py::flash_attention``: causal or
   full grouped-query attention, online softmax with f32 running max, sum
   and accumulator, scale hd^-0.5, query head h reading KV head
-  h // (H / KV), output in q's dtype.
+  h // (H / KV), output in q's dtype; and the sliding window of the
+  reference's ``_sdpa_naive``/``_sdpa_chunked``
+  (``repro/models/attention.py``), which that kernel lacks: row i sees
+  key j unless causal and j > i, or a window is set and i - j >= window.
 * **Bound:** at the dense prefill's shapes, operations.  The function needs
   4·B·H·pairs·hd flops (pairs = unmasked (query, key) pairs, about
   Sq·Sk/2 when causal) against moving q, k, v and o once: at granite's
@@ -13,9 +16,10 @@ ctypes.
   H100 SXM's 989 TFLOP/s bf16 tensor rate) against 335 MB (0.100 ms at
   3.35 TB/s).
 * **Two routes, one entry point** (``csrc/flash_attention.cu``), picked
-  by :func:`_route` from the dtype and head dim alone:
+  by :func:`_route` from the dtype, the head dim and the window:
 
-  - ``"wgmma"`` — bf16 at hd 64 and 128 (``csrc/flash_attention_wgmma.cuh``),
+  - ``"wgmma"`` — bf16 at hd 64 and 128 without a window
+    (``csrc/flash_attention_wgmma.cuh``),
     FlashAttention-3's shape: a persistent block per SM walks 128-row
     query tiles (the longest causal ones first); two consumer warpgroups
     of 64 rows and a producer warpgroup whose one thread loads Q and K/V
@@ -25,11 +29,16 @@ ctypes.
     accumulator fragments while the previous tile's P·V runs, the two
     warpgroups taking turns on the tensor cores.  P is rounded to bf16 as
     the P·V product's A operand; m, l and the accumulator stay f32.
-  - ``"fma"`` — f32 at every head dim, bf16 at hd 16 and 32: one
-    256-thread block per 64-row query tile and head, four threads per
-    row, K/V tiles of 32 rows as f32 in shared memory, P kept in f32, on
-    the f32 FMA units (f32 must stay within 2e-5 of the plain version,
-    which TF32 tensor cores cannot give).
+  - ``"fma"`` — every other call: f32 at every head dim, bf16 at hd 16,
+    32 and 256, and every windowed call: one 256-thread block
+    per query tile and head, four threads per row (64-row tiles, K/V
+    tiles of 32 rows) or eight at hd 256 (32-row tiles, K/V tiles of 16
+    rows), K/V as f32 in shared memory, P kept in f32, on the f32 FMA
+    units (f32 must stay within 2e-5 of the plain version, which TF32
+    tensor cores cannot give); the key loop visits only the tiles that
+    the window and the causal mask leave visible to some row of the
+    query tile.  The window is a template flag of the kernel, so calls
+    without one run no window code.
 
   Tensors are addressed through strides, so the model layout [B,S,H,hd]
   runs without a copy; the ``wgmma`` route's TMA needs every stride of a
@@ -50,8 +59,8 @@ import torch
 from repro_torch.kernels import build, check_tma
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
-#: Head dims the kernels are compiled for.
-HEAD_DIMS = (16, 32, 64, 128)
+#: Head dims the kernels are compiled for (the ``fma`` route's).
+HEAD_DIMS = (16, 32, 64, 128, 256)
 #: Head dims of the ``wgmma`` route (bf16 only).
 WGMMA_HEAD_DIMS = (64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -59,13 +68,13 @@ _ROUTES = {"fma": 0, "wgmma": 1}
 
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
              + [ctypes.c_int64] * 12
-             + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+             + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 
 
-def _route(dtype: torch.dtype, hd: int) -> str:
+def _route(dtype: torch.dtype, hd: int, window: int = 0) -> str:
     """The kernel a CUDA call takes: ``"wgmma"`` for bf16 at hd 64 and
-    128, ``"fma"`` otherwise."""
-    if dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS:
+    128 without a window, ``"fma"`` otherwise."""
+    if dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS and not window:
         return "wgmma"
     return "fma"
 
@@ -79,7 +88,7 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check(q, k, v, out) -> None:
+def _check(q, k, v, out, window: int) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.ndim != 4:
             raise ValueError(f"{name} must be 4-d, got {tuple(t.shape)}")
@@ -98,6 +107,8 @@ def _check(q, k, v, out) -> None:
         raise ValueError(f"head dim {hd} not in {HEAD_DIMS}")
     if sq and not sk:
         raise ValueError("attention over no keys")
+    if window < 0:
+        raise ValueError(f"window {window} must be >= 0")
     tensors = [("q", q), ("k", k), ("v", v)]
     if out is not None:
         if out.shape != q.shape or out.dtype != q.dtype:
@@ -118,15 +129,15 @@ def _strides(t: torch.Tensor) -> list[int]:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True,
+                    causal: bool = True, window: int = 0,
                     out: torch.Tensor | None = None) -> torch.Tensor:
     """q: [B, H, Sq, hd]; k, v: [B, KV, Sk, hd] -> [B, H, Sq, hd] in q's
     dtype, written into ``out`` when given.  Any strides with the head
-    dim contiguous."""
-    _check(q, k, v, out)
+    dim contiguous.  ``window`` 0 is none."""
+    _check(q, k, v, out, window)
     dev = q.device
     if dev.type == "cpu":
-        o = attention_ref(q, k, v, causal=causal)
+        o = attention_ref(q, k, v, causal=causal, window=window)
         return o if out is None else out.copy_(o)
     if dev.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu or cuda, not {dev}")
@@ -136,7 +147,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _, kvh, sk, _ = k.shape
     if out.numel() == 0:
         return out
-    route = _route(q.dtype, hd)
+    route = _route(q.dtype, hd, window)
     tensors = (("q", q), ("k", k), ("v", v), ("out", out))
     if route == "wgmma":
         check_tma(tensors)
@@ -144,7 +155,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _lib().flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, h, kvh, sq, sk, hd, *strides, hd ** -0.5, int(causal),
+        b, h, kvh, sq, sk, hd, *strides, hd ** -0.5, int(causal), window,
         _DTYPES[q.dtype], _ROUTES[route], stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention launch failed on the {route} "

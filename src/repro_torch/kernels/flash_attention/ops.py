@@ -13,9 +13,9 @@ from repro_torch.kernels.flash_attention.kernel import flash_attention
 
 
 def flash_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-               causal: bool = True) -> torch.Tensor:
-    """q: [B,S,H,hd]; k,v: [B,S,KV,hd] (model layout) -> [B,S,H,hd]."""
+               causal: bool = True, window: int = 0) -> torch.Tensor:
+    """q: [B,Sq,H,hd]; k,v: [B,Sk,KV,hd] (model layout) -> [B,Sq,H,hd]."""
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                    causal=causal, out=out.transpose(1, 2))
+                    causal=causal, window=window, out=out.transpose(1, 2))
     return out

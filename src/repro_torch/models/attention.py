@@ -1,5 +1,6 @@
-"""Grouped-query attention: full-sequence causal (prefill, forward) and
-decode.  The port of :mod:`repro.models.attention`.
+"""Grouped-query attention: full-sequence (causal, full or windowed;
+prefill, forward, encoder and cross attention) and decode.  The port of
+:mod:`repro.models.attention`.
 
 Shapes follow the [batch, seq, heads, head_dim] convention.
 :func:`_sdpa_train` is the flash-attention kernel
@@ -54,12 +55,13 @@ def _group_heads(q: torch.Tensor, n_kv: int) -> torch.Tensor:
 
 def _sdpa_train(q, k, v, *, causal: bool, window: int = 0,
                 q_offset: int = 0):
-    """q: [B,Sq,H,hd]; k,v: [B,Sk,KV,hd] -> [B,Sq,H,hd]."""
-    if window or q_offset:
-        raise NotImplementedError(
-            "windowed or offset attention belongs to the hybrid family "
-            "(recurrentgemma), a later slice of the port (ROADMAP item 14)")
-    return flash_sdpa(q, k, v, causal=causal)
+    """q: [B,Sq,H,hd]; k,v: [B,Sk,KV,hd] -> [B,Sq,H,hd].  No model
+    calls it with a query offset, so K2 takes none and a non-zero one
+    raises."""
+    if q_offset:
+        raise ValueError(f"q_offset {q_offset}: the attention kernel takes "
+                         "no query offset")
+    return flash_sdpa(q, k, v, causal=causal, window=window)
 
 
 def _qkv(params: AttnParams, x: torch.Tensor):
@@ -81,6 +83,17 @@ def attention_train(params: AttnParams, x: torch.Tensor, cfg: ArchConfig,
         q = apply_rope(q, pos, cfg.rope_theta)
         k = apply_rope(k, pos, cfg.rope_theta)
     o = _sdpa_train(q, k, v, causal=causal, window=window)
+    return torch.einsum("bshk,hkd->bsd", o, params.wo)
+
+
+def cross_attention(params: AttnParams, x: torch.Tensor,
+                    kv_src: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """Encoder-decoder cross attention (no mask, no rope): queries from
+    ``x`` [B,Sq,D], keys and values from ``kv_src`` [B,Sk,D]."""
+    q = torch.einsum("bsd,dhk->bshk", x, params.wq)
+    k = torch.einsum("bsd,dhk->bshk", kv_src, params.wk)
+    v = torch.einsum("bsd,dhk->bshk", kv_src, params.wv)
+    o = _sdpa_train(q, k, v, causal=False)
     return torch.einsum("bshk,hkd->bsd", o, params.wo)
 
 
@@ -107,12 +120,9 @@ def attention_decode(params: AttnParams, x: torch.Tensor, cache: KVCache,
 
     Returns (out [B,1,D], cache).  The new K/V is written into ring slot
     ``pos % s_max`` of ``cache`` in place (the reference returns an
-    updated copy; the values are the same).
+    updated copy; the values are the same).  With ``window`` the keys
+    ``window`` or more positions back are masked.
     """
-    if window:
-        raise NotImplementedError(
-            "windowed decode belongs to the hybrid family (recurrentgemma), "
-            "a later slice of the port (ROADMAP item 14)")
     b = x.shape[0]
     q, k, v = _qkv(params, x)
     if use_rope:
@@ -135,6 +145,8 @@ def attention_decode(params: AttnParams, x: torch.Tensor, cache: KVCache,
     kpos = torch.arange(s_max, device=x.device)
     abs_pos = pos - torch.remainder(pos - kpos, s_max)
     valid = abs_pos >= 0
+    if window:
+        valid &= abs_pos > pos - window
     logits = torch.where(valid, logits, torch.full_like(logits, NEG_INF))
     probs = torch.softmax(logits, dim=-1).to(x.dtype)
     o = torch.einsum("bkgqs,bskh->bqkgh", probs, cache.v)

@@ -11,8 +11,9 @@ entries: gathered rows, and the pool with leaf ids); flash
 attention 2e-5 in f32 and 3e-2 in bf16 at the reference kernel test's
 shapes (tests/test_kernels.py), 4e-3 absolute plus 1e-2 relative in bf16
 at the models' widths and on the wgmma route's own cases; WKV6 1e-4 in
-f32 and 0.15 in bf16; the reduced models 1e-4 in f32."""
+f32 and 0.15 in bf16; the reduced models (every family) 1e-4 in f32."""
 import copy
+import dataclasses
 
 import numpy as np
 import pytest
@@ -280,6 +281,55 @@ def test_flash_attention_wgmma_route_sq_ne_sk(sq, sk, causal, hd):
     close(got, attention_ref(q, k, v, causal=causal), 4e-3, 1e-2)
 
 
+# (B, H, KV, Sq, Sk, hd, causal, window): the sliding window on the FMA
+# route, at every head dim in both dtypes (a window that clips, one at
+# least S, window 1, Sq > Sk with rows that see no key, windowed full
+# attention over Sq < Sk and Sq = Sk), and recurrentgemma's local
+# attention (B 1 of 4, H 10, MQA, S 4096, hd 256, window 2048)
+WINDOWED_CASES = [(2, 4, 1, 300, 300, hd, True, 64)
+                  for hd in (16, 64, 128, 256)] + [
+                 (1, 4, 2, 200, 200, 256, True, 512),
+                 (2, 2, 1, 77, 77, 64, True, 1),
+                 (1, 4, 2, 356, 100, 128, True, 96),
+                 (1, 4, 2, 100, 356, 256, False, 96),
+                 (1, 2, 2, 130, 130, 32, False, 17),
+                 (1, 10, 1, 4096, 4096, 256, True, 2048)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,kv,sq,sk,hd,causal,window", WINDOWED_CASES)
+def test_flash_attention_window_matches_plain_version(
+        b, h, kv, sq, sk, hd, causal, window, dtype):
+    rng = np.random.default_rng(sq * sk + hd + window)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+               .to(getattr(torch, dtype)).cuda()
+               for shape in ((b, h, sq, hd), (b, kv, sk, hd),
+                             (b, kv, sk, hd)))
+    kw = dict(causal=causal, window=window)
+    assert _route(q.dtype, hd, window) == "fma"
+    n0 = route_counts()
+    got = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert_launched(n0, 1, "fma")
+    atol, rtol = (2e-5, 2e-5) if dtype == "float32" else (4e-3, 1e-2)
+    close(got, attention_ref(q, k, v, **kw), atol, rtol)
+
+
+@pytest.mark.parametrize("sq,sk,causal", [(1500, 1500, False),
+                                          (4096, 1500, False)])
+def test_flash_attention_whisper_shapes_on_the_wgmma_route(sq, sk, causal):
+    rng = np.random.default_rng(sq + sk)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+               .to(torch.bfloat16).cuda()
+               for shape in ((1, 16, sq, 64), (1, 16, sk, 64),
+                             (1, 16, sk, 64)))
+    n0 = route_counts()
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert_launched(n0, 1, "wgmma")
+    close(got, attention_ref(q, k, v, causal=causal), 4e-3, 1e-2)
+
+
 # --------------------------------------------------------------------------
 # WKV6
 # --------------------------------------------------------------------------
@@ -360,23 +410,43 @@ def test_wkv6_two_launches_give_the_same_bits():
 # the reduced models: card against CPU
 # --------------------------------------------------------------------------
 
-@pytest.mark.parametrize("name", ["smollm_135m", "granite_3_8b",
-                                  "rwkv6_1_6b"])
+# the reduced models; recurrentgemma with 5 layers (reduced it has 2, so
+# no super-block and no attention): one super-block and two tail blocks
+MODEL_CASES = {"smollm_135m": {}, "granite_3_8b": {}, "rwkv6_1_6b": {},
+               "qwen2_moe_a2_7b": {}, "llama4_scout_17b_a16e": {},
+               "internvl2_1b": {}, "whisper_medium": {},
+               "recurrentgemma_2b": {"n_layers": 5}}
+
+
+def kernel_launches_a_forward(cfg):
+    """(kernel, launches) of one forward: flash attention once a layer
+    (Whisper: the encoder's, the decoder's causal and its cross
+    attention; Griffin: once a super-block), WKV6 once a layer."""
+    if cfg.family == "ssm":
+        return wkv6, cfg.n_layers
+    if cfg.family == "audio":
+        return flash_attention, cfg.n_enc_layers + 2 * cfg.n_layers
+    if cfg.family == "hybrid":
+        return flash_attention, cfg.n_layers // 3
+    return flash_attention, cfg.n_layers
+
+
+@pytest.mark.parametrize("name", list(MODEL_CASES))
 def test_model_on_the_card_matches_cpu(name):
     """The same weights on the card (kernels) and on the CPU (plain
     versions) give the same logits within 1e-4 in f32."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = TC.get_reduced(name)
+    cfg = dataclasses.replace(TC.get_reduced(name), **MODEL_CASES[name])
     cpu = TREG.build(cfg, device="cpu")
     model = cpu.init(torch.Generator().manual_seed(0))
     gpu = TREG.build(cfg, device="cuda")
     model_gpu = copy.deepcopy(model).to("cuda")
     batch = TREG.make_batch(cfg, 2, 40, torch.Generator().manual_seed(1),
                             "cpu")
-    kernel = flash_attention if cfg.family == "dense" else wkv6
+    kernel, n = kernel_launches_a_forward(cfg)
     n0 = kernel.launches
-    got = gpu.forward(model_gpu, {"tokens": batch["tokens"].cuda()})
-    assert kernel.launches == n0 + cfg.n_layers
+    got = gpu.forward(model_gpu, {k: t.cuda() for k, t in batch.items()})
+    assert kernel.launches == n0 + n
     close(got, cpu.forward(model, batch), 1e-4, 1e-4)
 
 

@@ -1,8 +1,10 @@
 """PyTorch port, flash-attention kernel: the plain version and the wrapper on
 CPU tensors against the reference's jnp oracle on the reference kernel
 test's shapes, the reference's Pallas kernel (interpret mode) on one shape,
-a ragged sequence length, and the model-layout wrapper; the CUDA kernel
-against the plain version is in test_torch_cuda.py.
+a ragged sequence length, and the model-layout wrapper; the sliding window
+and the query offset against the reference's ``_sdpa_naive`` and
+``_sdpa_chunked``; the CUDA kernel against the plain version is in
+test_torch_cuda.py.
 
 Tolerances: 2e-5 in f32 and 3e-2 in bf16, the reference kernel test's
 (tests/test_kernels.py)."""
@@ -14,12 +16,15 @@ import torch
 from repro.kernels.flash_attention.kernel import flash_attention as j_flash
 from repro.kernels.flash_attention.ops import flash_sdpa as j_flash_sdpa
 from repro.kernels.flash_attention.ref import attention_ref as j_ref
+from repro.models.attention import _sdpa_chunked, _sdpa_naive
 from repro_torch.kernels import check_tma
-from repro_torch.kernels.flash_attention.kernel import (HEAD_DIMS, _route,
-                                                        _strides,
+from repro_torch.kernels.flash_attention.kernel import (HEAD_DIMS,
+                                                        WGMMA_HEAD_DIMS,
+                                                        _route, _strides,
                                                         flash_attention)
 from repro_torch.kernels.flash_attention.ops import flash_sdpa
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.models.attention import _sdpa_train
 
 # the reference kernel test's shapes (tests/test_kernels.py)
 SHAPES = [(2, 4, 2, 256, 64, True, "float32"),
@@ -103,14 +108,86 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(break_arg):
     assert flash_attention.launches == n0
 
 
+@pytest.mark.parametrize("window", [0, 1, 8, 2048])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("hd", HEAD_DIMS)
-def test_route_depends_on_dtype_and_head_dim_alone(dtype, hd):
-    """bf16 at hd 64 and 128 takes the wgmma kernel; f32 at every head dim
-    (it must stay within 2e-5, which TF32 tensor cores cannot give) and
-    bf16 at 16 and 32 take the FMA kernel."""
-    want = "wgmma" if dtype == "bfloat16" and hd in (64, 128) else "fma"
-    assert _route(getattr(torch, dtype), hd) == want
+def test_route_depends_on_dtype_head_dim_and_window(dtype, hd, window):
+    """bf16 at hd 64 and 128 without a window takes the wgmma kernel; f32
+    at every head dim (it must stay within 2e-5, which TF32 tensor cores
+    cannot give), bf16 at 16, 32 and 256, and every windowed call take the
+    FMA kernel."""
+    want = ("wgmma" if dtype == "bfloat16" and hd in (64, 128) and not window
+            else "fma")
+    assert _route(getattr(torch, dtype), hd, window) == want
+
+
+# (B, H, KV, Sq, Sk, hd, causal, window): recurrentgemma's MQA at hd 256
+# (reduced), a window that clips, one at least S (no clip), window 1 (each
+# row sees itself), Sq > Sk with rows that see no key (they average every
+# key, as the reference's softmax over NEG_INF does), full attention with
+# a window over Sq < Sk, full attention with a window, and cross-shaped
+# Sq != Sk
+WINDOWED = [(2, 4, 1, 40, 40, 256, True, 8),
+            (1, 4, 2, 96, 96, 64, True, 16),
+            (1, 4, 2, 40, 40, 32, True, 64),
+            (2, 2, 1, 33, 33, 16, True, 1),
+            (1, 4, 2, 56, 24, 128, True, 10),
+            (1, 4, 2, 24, 56, 64, False, 10),
+            (1, 2, 2, 48, 48, 16, False, 5),
+            (1, 4, 4, 30, 70, 64, False, 0)]
+
+
+@pytest.mark.parametrize("b,h,kv,sq,sk,hd,causal,window", WINDOWED)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_window_matches_the_reference(b, h, kv, sq, sk, hd, causal, window,
+                                      dtype):
+    """attention_ref and the wrapper (model layout, CPU) against the
+    reference's _sdpa_naive, and _sdpa_chunked where Sk splits into
+    chunks, with the same window."""
+    rng = np.random.default_rng(sq * sk + hd + window)
+    host = [rng.standard_normal(shape).astype(np.float32)
+            for shape in ((b, sq, h, hd), (b, sk, kv, hd), (b, sk, kv, hd))]
+    jm = [jnp.asarray(a, getattr(jnp, dtype)) for a in host]
+    tm = [torch.from_numpy(a).to(getattr(torch, dtype)) for a in host]
+    kw = dict(causal=causal, window=window)
+    got = flash_sdpa(*tm, **kw)
+    assert got.dtype == getattr(torch, dtype)
+    close(got, _sdpa_naive(*jm, **kw), dtype)
+    kernel_layout = [t.transpose(1, 2) for t in tm]
+    assert torch.equal(attention_ref(*kernel_layout, **kw).transpose(1, 2),
+                       got)
+    if sk % 8 == 0:
+        close(got, _sdpa_chunked(*jm, chunk=8, **kw), dtype)
+
+
+def test_head_dim_256_takes_the_fma_route_alone():
+    """The wgmma kernel is built for hd 64 and 128: hd 256 is an FMA
+    head dim, and a head dim neither route is built for is refused
+    before any launch."""
+    assert 256 in HEAD_DIMS and 256 not in WGMMA_HEAD_DIMS
+    assert _route(torch.bfloat16, 256) == "fma"
+    _, (q, k, v) = make_inputs(0, 1, 4, 2, 64, 64, "bfloat16")
+    wide = [torch.cat([t] * 8, dim=-1) for t in (q, k, v)]    # hd 512
+    n0 = flash_attention.launches
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(*wide)
+    with pytest.raises(ValueError, match="window"):
+        flash_attention(q, k, v, window=-1)
+    assert flash_attention.launches == n0
+
+
+def test_model_attention_refuses_a_query_offset():
+    """K2 takes no query offset (no model calls one), so the model's
+    full-sequence attention refuses a non-zero one before any launch
+    instead of ignoring it."""
+    _, (q, k, v) = make_inputs(0, 1, 4, 2, 64, 32, "float32")
+    q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+    n0 = flash_attention.launches
+    with pytest.raises(ValueError, match="q_offset"):
+        _sdpa_train(q, k, v, causal=True, q_offset=3)
+    assert flash_attention.launches == n0
+    assert torch.equal(_sdpa_train(q, k, v, causal=True, q_offset=0),
+                       flash_sdpa(q, k, v, causal=True))
 
 
 def test_wrapper_on_cpu_counts_no_launch():

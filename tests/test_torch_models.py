@@ -23,7 +23,6 @@ from repro.models import registry as JREG
 from repro.models import rwkv6 as JR
 from repro.models import transformer as JT
 from repro_torch import configs as TC
-from repro_torch.models import attention as TA
 from repro_torch.models import common as TCM
 from repro_torch.models import registry as TREG
 from repro_torch.models import rwkv6 as TR
@@ -31,7 +30,6 @@ from repro_torch.models import transformer as TT
 
 TOL = 1e-4
 DENSE = ["smollm_135m", "granite_3_8b"]
-PORTED_FAMILIES = ("dense", "ssm")
 DTYPES = {jnp.bfloat16: torch.bfloat16, jnp.float32: torch.float32}
 
 
@@ -67,15 +65,16 @@ def test_configs_equal_the_reference_field_for_field(name, reduced):
 
 
 @pytest.mark.parametrize("name", JC.ALL_ARCHS)
-def test_registry_builds_ported_families_and_refuses_the_rest(name):
+def test_registry_builds_every_config(name):
+    """Every family is ported: the registry builds each config, with a
+    prefill exactly where the reference has one."""
     cfg = TC.get_reduced(name)
-    if cfg.family in PORTED_FAMILIES:
-        api = TREG.build(cfg, device="cpu")
-        assert api.cfg is cfg
-        assert (api.prefill is None) == (cfg.family == "ssm")
-        return
-    with pytest.raises(NotImplementedError, match=cfg.family):
-        TREG.build(cfg, device="cpu")
+    api = TREG.build(cfg, device="cpu")
+    assert api.cfg is cfg
+    japi = JREG.build(JC.get_reduced(name))
+    assert (api.prefill is None) == (japi.prefill is None)
+    assert (api.prefill is None) == (cfg.family in ("ssm", "hybrid",
+                                                    "audio"))
 
 
 def test_registry_defaults_to_cuda(monkeypatch):
@@ -89,6 +88,8 @@ def test_registry_defaults_to_cuda(monkeypatch):
 
 
 def test_registry_imports_no_unported_model():
+    """The registry loads exactly the port's model modules, every family's
+    (and so nothing of the reference)."""
     code = ("import sys, repro_torch.models.registry\n"
             "print(' '.join(sorted(m for m in sys.modules if m.startswith("
             "'repro_torch.models.'))))\n")
@@ -98,7 +99,8 @@ def test_registry_imports_no_unported_model():
                          cwd=__file__.rsplit("/tests/", 1)[0])
     assert out.stdout.split() == [
         f"repro_torch.models.{m}" for m in
-        ("attention", "common", "registry", "rwkv6", "transformer")]
+        ("attention", "common", "moe", "registry", "rglru", "rwkv6",
+         "transformer", "whisper")]
 
 
 def test_make_batch():
@@ -298,13 +300,3 @@ def test_decode_matches_forward_rwkv():
         outs.append(lg)
     close(torch.stack(outs, 1), full.numpy(), 1e-3)
     assert np.isfinite(float(api.loss(model, batch)))
-
-
-def test_unported_attention_forms_and_moe_raise():
-    q = torch.zeros((1, 4, 2, 16))
-    for kw in ({"window": 8}, {"q_offset": 2}):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            TA._sdpa_train(q, q, q, causal=True, **kw)
-    moe = TC.get_reduced("qwen2_moe_a2_7b")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        TT.init_lm(torch.Generator(), moe, "cpu")

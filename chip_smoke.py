@@ -18,9 +18,10 @@ Phases, in order; any failure raises and exits non-zero:
    with leaf ids; flash attention and WKV6 within the reference kernel
    test's tolerances) at the reference kernel test's shapes, a ragged
    shape and the main paths' shapes (flash attention on both of its
-   routes: ``wgmma`` for bf16 at hd 64 and 128 without a window,
-   ``fma`` otherwise; with a sliding window at every head dim up to 256,
-   with rows that see no key, whisper-medium's encoder and
+   routes: ``wgmma`` for bf16 at hd 64, 128 and 256 with or without a
+   window, ``fma`` for f32 and bf16 at hd 16 and 32; with a sliding
+   window at every head dim up to 256, with window edges inside a key
+   tile and rows that see no key, whisper-medium's encoder and
    cross-attention shapes, recurrentgemma-2b's local attention), and
    time kernel, plain version and (for attention) PyTorch's SDPA on the
    device and per eager call (WKV6 in the kernel layout and in the model
@@ -89,7 +90,7 @@ Phases, in order; any failure raises and exits non-zero:
    (72 launches: encoder, causal, cross), decode_init (24) and 64 decode
    steps; decode == decode_train on a 64-token prompt;
 12. griffin — recurrentgemma-2b: forward and loss over 4 × 4096 tokens
-   (8 launches on the ``fma`` route, window 2048 at hd 256), 64 decode
+   (8 launches on the ``wgmma`` route, window 2048 at hd 256), 64 decode
    steps on the 2,048-slot rings; decode == forward on the first
    super-block in bf16 and on the whole model in f32.
 
@@ -212,14 +213,17 @@ QWEN_TOL = 0.094
 WHISPER_TOL = 0.094
 GRIFFIN_BF16_TOL = 0.1875
 GRIFFIN_TOL = 1e-3
-# K2's window and cross shapes (B, H, KV, Sq, Sk, hd, causal, window,
-# dtype, atol, rtol), all but whisper's on the fma route: a clipping
-# window at every head dim in both dtypes, a window at least S, window 1,
-# Sq > Sk with rows that see no key, windowed full attention over
-# Sq < Sk and Sq = Sk;
-# whisper-medium's encoder (S 1500, ragged against the 128-row tiles) and
-# cross-attention (Sq 4096, Sk 1500) at its loss's shapes on the wgmma
-# route; recurrentgemma-2b's local attention (MQA, hd 256, window 2048)
+# K2's window, hd 256 and cross shapes (B, H, KV, Sq, Sk, hd, causal,
+# window, dtype, atol, rtol), bf16 at hd 64, 128 and 256 on the wgmma
+# route and the rest on the fma route: a clipping window at every head
+# dim in both dtypes, a window at least S, window 1, Sq > Sk with rows
+# that see no key, windowed full attention over Sq < Sk and Sq = Sk;
+# window edges inside the wgmma route's 64-key (hd 256) and 128-key
+# tiles (window 65 and 129 at Sq = Sk = 200); hd 256 without a window
+# on the wgmma route (causal and full, GQA groups 1 and 3, ragged
+# Sq != Sk); whisper-medium's encoder (S 1500, ragged against the
+# 128-row tiles) and cross-attention (Sq 4096, Sk 1500) at its loss's
+# shapes; recurrentgemma-2b's local attention (MQA, hd 256, window 2048)
 # at its forward's shape in both dtypes.
 _F32, _BF16 = ("float32", 2e-5, 2e-5), ("bfloat16", 4e-3, 1e-2)
 FLASH_WINDOWED = [(2, 4, 1, 300, 300, hd, True, 64) + dt
@@ -230,6 +234,15 @@ FLASH_WINDOWED = [(2, 4, 1, 300, 300, hd, True, 64) + dt
                  (1, 4, 2, 356, 100, 128, True, 96) + _BF16,
                  (1, 4, 2, 100, 356, 256, False, 96) + _F32,
                  (1, 2, 2, 130, 130, 32, False, 17) + _BF16,
+                 (1, 4, 2, 200, 200, 256, True, 65) + _BF16,
+                 (1, 4, 2, 200, 200, 256, True, 129) + _BF16,
+                 (1, 4, 2, 200, 200, 128, True, 65) + _BF16,
+                 (1, 4, 2, 200, 200, 128, True, 129) + _BF16,
+                 (1, 4, 2, 356, 100, 256, True, 96) + _BF16,
+                 (1, 4, 4, 300, 300, 256, True, 0) + _BF16,
+                 (1, 4, 4, 300, 300, 256, False, 0) + _BF16,
+                 (2, 6, 2, 200, 77, 256, True, 0) + _BF16,
+                 (2, 6, 2, 77, 200, 256, False, 0) + _BF16,
                  (4, 16, 16, 1500, 1500, 64, False, 0) + _BF16,
                  (4, 16, 16, 4096, 1500, 64, False, 0) + _BF16,
                  (4, 10, 1, 4096, 4096, 256, True, 2048) + _F32,
@@ -1891,10 +1904,10 @@ def phase_flash(torch, flash_attention, attention_ref, route_of):
 
 
 def phase_flash_window(torch, flash_attention, attention_ref, route_of):
-    """K2's sliding window and cross shapes against the
-    plain version (``FLASH_WINDOWED``), then recurrentgemma-2b's local
-    attention timed against its bound and SDPA with the same boolean
-    mask; return its numbers."""
+    """K2's sliding window, hd 256 and cross shapes against the plain
+    version (``FLASH_WINDOWED``), then recurrentgemma-2b's local attention
+    timed against its bound and SDPA with the same boolean mask (raise if
+    the kernel is the slower); return its numbers."""
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda").manual_seed(13)
     torch.cuda.reset_peak_memory_stats()
@@ -1927,15 +1940,17 @@ def phase_flash_window(torch, flash_attention, attention_ref, route_of):
     idx = torch.arange(s, device="cuda")
     mask = ((idx[:, None] >= idx[None, :])
             & (idx[:, None] - idx[None, :] < window))
+    route = route_of(q.dtype, hd, window)
+    reps = 20 if route == "wgmma" else 5
     kernel = lambda: flash_attention(q, k, v, causal=True, window=window)
     library = lambda: F.scaled_dot_product_attention(
         q, k, v, attn_mask=mask, enable_gqa=True)
     # SDPA computes the same function: check it before timing it
     _check_close(torch, library(), kernel(), 4e-3, 1e-2,
                  "SDPA with the window mask vs the kernel")
-    ms = device_ms(torch, kernel, reps=5, samples=5)
-    call_ms = host_ms(torch, kernel, reps=5, samples=5)
-    lib_ms = device_ms(torch, library, reps=5, samples=5)
+    ms = device_ms(torch, kernel, reps=reps, samples=5)
+    call_ms = host_ms(torch, kernel, reps=reps, samples=5)
+    lib_ms = device_ms(torch, library, reps=reps, samples=5)
     plain_ms = host_ms(torch, lambda: attention_ref(
         q, k, v, causal=True, window=window), reps=2, samples=3)
     # the work: 4·hd flops per unmasked (query, key) pair and head at the
@@ -1947,15 +1962,20 @@ def phase_flash_window(torch, flash_attention, attention_ref, route_of):
     bytes_ms = n_bytes / HBM_BYTES_S * 1e3
     bound_ms = max(ops_ms, bytes_ms)
     log(f"kernel  flash_attention B={b} H={h} KV={kv} S={s} hd={hd} "
-        f"window={window} bfloat16 causal (fma route): device {ms:.6f} ms "
-        f"(CUDA graph of 5 calls); per eager call {call_ms:.6f} ms; SDPA "
-        f"with the boolean window mask {lib_ms:.6f} ms (CUDA graph of 5 "
-        f"calls); plain {plain_ms:.6f} ms per eager call; bound "
+        f"window={window} bfloat16 causal ({route} route): device "
+        f"{ms:.6f} ms (CUDA graph of {reps} calls); per eager call "
+        f"{call_ms:.6f} ms; SDPA with the boolean window mask {lib_ms:.6f} "
+        f"ms (CUDA graph of {reps} calls); plain {plain_ms:.6f} ms per "
+        f"eager call; bound "
         f"{bound_ms:.6f} ms ({pairs} pairs a head, {n_ops} flops at bf16 "
         f"peak {ops_ms:.6f} ms, {n_bytes} bytes {bytes_ms:.6f} ms); "
         f"{ms / bound_ms:.3f}x the bound, {ms / lib_ms:.3f}x SDPA; "
         f"{_peak(torch)}")
-    return dict(route="fma", shape=dict(B=b, H=h, KV=kv, S=s, hd=hd,
+    if ms > lib_ms:
+        raise AssertionError(f"K2 at recurrentgemma's local attention: "
+                             f"{ms:.6f} ms on the {route} route, slower "
+                             f"than SDPA with the mask ({lib_ms:.6f} ms)")
+    return dict(route=route, shape=dict(B=b, H=h, KV=kv, S=s, hd=hd,
                                         window=window, dtype="bfloat16"),
                 max_abs_err=max_err, ms=ms, host_ms=call_ms,
                 plain_ms=plain_ms, bound_ms=bound_ms,
@@ -2386,8 +2406,8 @@ def phase_whisper(torch, get, registry, fa):
 
 def phase_griffin(torch, get, registry, fa, rglru):
     """recurrentgemma-2b at its published width (bf16, seed 0): forward
-    and loss over 4 × 4096 tokens (8 K2 launches, fma: window 2048 at hd
-    256), 64 decode steps at batch 4 on the 2,048-slot rings; decode ==
+    and loss over 4 × 4096 tokens (8 K2 launches, wgmma: window 2048 at
+    hd 256), 64 decode steps at batch 4 on the 2,048-slot rings; decode ==
     forward on the first super-block in bf16 over 64 tokens and on the
     whole model in f32 over 256 tokens (as rwkv6's cell)."""
     cfg = get("recurrentgemma-2b")
@@ -2397,7 +2417,7 @@ def phase_griffin(torch, get, registry, fa, rglru):
     model = init_model(torch, api, gen, "griffin")
     batch = registry.make_batch(cfg, 4, 4096, gen)
     b, s = batch["tokens"].shape
-    want = {"wgmma": 0, "fma": rglru.n_super(cfg)}
+    want = {"wgmma": rglru.n_super(cfg), "fma": 0}
     reset_flash(fa)
     logits, fwd_s = timed(torch, lambda: api.forward(model, batch))
     routes = expect_routes(fa, want, "griffin forward")

@@ -12,10 +12,13 @@ the plain version, then the timed prefill shapes (granite-3-8b's in bf16
 on the ``wgmma`` route and in f32 on the ``fma`` route, smollm-135m's in
 bf16), each on the device as a replayed CUDA graph.  The first run of a
 checkout builds its library and prints ptxas's lines for the ``fma``
-kernels.  Its lines are printed under ``=== <checkout>``; the last line
-sums up each timed shape's device ms, run by run, per checkout.  Runs
-alternate so that a drift of the card's speed falls on both.  Imports
-nothing of JAX.
+kernels, and every run prints a digest of each ``wgmma`` kernel's SASS
+(``cuobjdump -sass``, addresses and encodings stripped) by head dim and
+window flag, so two checkouts' instantiations can be seen to be the same
+code.  Its lines are printed under ``=== <checkout>``; the last line
+sums up each timed shape's device ms, run by run, per checkout, and each
+checkout's SASS digests.  Runs alternate so that a drift of the card's
+speed falls on both.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -27,8 +30,8 @@ import sys
 from pathlib import Path
 
 # run in the checkout's root: its chip_smoke.py and src/ come first
-_CHILD = """
-import os, sys
+_CHILD = r"""
+import hashlib, os, re, subprocess, sys
 import torch
 sys.path[:0] = [os.getcwd(), os.path.join(os.getcwd(), "src")]
 import chip_smoke
@@ -36,17 +39,33 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.kernel import _route, flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
 torch.backends.cuda.matmul.allow_tf32 = False
-build.build_all(["flash_attention"])
+lib = build.build_all(["flash_attention"])[0]
 lines = build.BUILD_LOGS.get("flash_attention", "").splitlines()
 for i, ln in enumerate(lines):
     if "Compiling entry" in ln and "flash_fwd_kernel" in ln:
         regs = [n.strip() for n in lines[i + 1:i + 4]
                 if "registers" in n or "spill" in n]
         print("ptxas", ln.split("'")[1], *regs, flush=True)
+sass = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass", str(lib)],
+                      capture_output=True, text=True, check=True).stdout
+for fn in sass.split("Function : ")[1:]:
+    name, body = fn.split("\n", 1)
+    if "flash_wgmma_kernel" not in name:
+        continue
+    args = name.split("kernelILi")[1]
+    tag = args.split("E")[0] + (" window" if "ELb1E" in args else "")
+    code = [re.sub(r"/\*.*?\*/", "", ln).strip() for ln in
+            body.split("Function : ")[0].splitlines()]
+    code = [c for c in code if c and not c.startswith(".")]
+    print(f"sass wgmma hd {tag}: {len(code)} instructions, sha1 "
+          f"{hashlib.sha1(chr(10).join(code).encode()).hexdigest()}",
+          flush=True)
 chip_smoke.phase_flash(torch, flash_attention, attention_ref, _route)
 """
 _TIMED = re.compile(r"(B=\d+ H=\d+ KV=\d+ S=\d+ hd=\d+ \w+) causal "
                     r"\((\w+) route\): device ([0-9.]+) ms")
+_SASS = re.compile(r"sass wgmma hd (\d+(?: window)?): (\d+) instructions, "
+                   r"sha1 (\w+)")
 
 
 def main() -> int:
@@ -61,6 +80,7 @@ def main() -> int:
             raise SystemExit(f"{r} holds no chip_smoke.py")
     ms: dict[str, dict[str, list[float]]] = {str(args.a): {},
                                              str(args.b): {}}
+    sass: dict[str, dict[str, str]] = {str(args.a): {}, str(args.b): {}}
     for letter in args.order:
         name = str(args.a if letter == "A" else args.b)
         print(f"=== {name}", flush=True)
@@ -74,7 +94,9 @@ def main() -> int:
                              f"{proc.returncode}")
         for shape, route, t in _TIMED.findall(proc.stdout):
             ms[name].setdefault(f"{shape} {route}", []).append(float(t))
-    print(json.dumps({"device_ms": ms}), flush=True)
+        for tag, n, digest in _SASS.findall(proc.stdout):
+            sass[name][f"hd {tag}"] = f"{n} instructions, sha1 {digest}"
+    print(json.dumps({"device_ms": ms, "wgmma_sass": sass}), flush=True)
     return 0
 
 

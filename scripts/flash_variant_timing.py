@@ -7,11 +7,14 @@ design variants of its kernels.
 Builds ``CSRC_DIR/flash_attention.cu`` (default: the repo's
 ``src/repro_torch/csrc``; a variant is a copy of that directory with an
 edit) into ``build/repro_torch/``, prints the wgmma kernels' ptxas lines
-(registers, spills, performance notes) and the library's HGMMA count, with
-``--check`` holds it against the plain version on ragged, GQA and prefill
-cases at 4e-3 + 1e-2, then times the bf16 causal prefill shapes of
-smollm-135m and granite-3-8b (B=4, S=4096) beside PyTorch's SDPA: the
-median over 7 samples of 20 back-to-back calls, CUDA events.
+(registers, spills, performance notes; per head dim and window flag) and
+the library's HGMMA count, with ``--check`` holds it against the plain
+version on ragged, GQA, prefill and windowed cases (hd 64, 128 and 256) at
+4e-3 + 1e-2, then times the bf16 causal prefill shapes of smollm-135m and
+granite-3-8b (B=4, S=4096) beside PyTorch's SDPA, and recurrentgemma-2b's
+local attention (B=4, H=10, KV=1, S=4096, hd=256, window 2048) beside SDPA
+with the same boolean mask: the median over 7 samples of 20 back-to-back
+calls, CUDA events.
 
 Each library links its own CUDA runtime, so run one variant per process,
 and compare variants inside one machine's run in turns (A B B A).
@@ -40,6 +43,20 @@ CASES = [(1, 2, 2, 128, 64, False), (1, 4, 1, 300, 128, False),
          (2, 8, 2, 256, 128, True), (2, 9, 3, 77, 64, True),
          (1, 2, 2, 4097, 128, True), (1, 3, 1, 4097, 64, False),
          (4, 32, 8, 4096, 128, True), (4, 9, 3, 4096, 64, True)]
+# (B, H, KV, Sq, Sk, hd, causal, window): hd 256 without a window (GQA 1
+# and 3, ragged, Sq != Sk), windows whose edge falls mid-tile, rows that
+# see no key (Sq > Sk), then recurrentgemma-2b's local attention, which is
+# also timed
+WINDOW_CASES = [(1, 4, 4, 300, 300, 256, True, 0),
+                (2, 6, 2, 200, 77, 256, False, 0),
+                (1, 3, 1, 130, 300, 256, True, 0),
+                (1, 4, 2, 200, 200, 256, True, 65),
+                (1, 4, 2, 200, 200, 128, True, 129),
+                (1, 4, 2, 300, 300, 64, True, 64),
+                (1, 4, 2, 356, 100, 256, True, 96),
+                (1, 4, 2, 100, 356, 256, False, 96),
+                (2, 2, 1, 77, 77, 256, True, 1),
+                (4, 10, 1, 4096, 4096, 256, True, 2048)]
 
 
 def event_ms(fn, reps: int = 20, samples: int = 7) -> float:
@@ -70,10 +87,12 @@ def main() -> int:
         if "Potential" in ln or "setmaxnreg" in ln:
             print(f"[{label}] {ln.strip()}")
         if "Compiling entry" in ln and "flash_wgmma_kernel" in ln:
-            hd = ln.split("kernelILi")[1].split("E")[0]
+            args = ln.split("kernelILi")[1]
+            hd = args.split("E")[0]
+            window = " window" if "ELb1E" in args else ""
             for nxt in lines[i + 1:i + 4]:
                 if "registers" in nxt or "spill" in nxt:
-                    print(f"[{label}] hd {hd}: {nxt.strip()}")
+                    print(f"[{label}] hd {hd}{window}: {nxt.strip()}")
     sass = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass", str(lib)],
                           capture_output=True, text=True, check=True).stdout
     print(f"[{label}] HGMMA {sum('HGMMA' in ln for ln in sass.splitlines())}",
@@ -85,17 +104,24 @@ def main() -> int:
         return [torch.randn((b, n, s, hd), generator=gen, device="cuda")
                 .to(torch.bfloat16) for n in (h, kv, kv)]
 
+    def windowed(b, h, kv, sq, sk, hd):
+        return [torch.randn((b, n, s, hd), generator=gen, device="cuda")
+                .to(torch.bfloat16) for n, s in ((h, sq), (kv, sk), (kv, sk))]
+
     if "--check" in sys.argv:
-        for case in CASES:
-            q, k, v = inputs(*case[:5])
-            got = flash_attention(q, k, v, causal=case[5]).float()
-            want = attention_ref(q, k, v, causal=case[5]).float()
+        checks = [(inputs(*c[:5]), dict(causal=c[5]), c) for c in CASES]
+        checks += [(windowed(*c[:6]), dict(causal=c[6], window=c[7]), c)
+                   for c in WINDOW_CASES]
+        for (q, k, v), kw, case in checks:
+            got = flash_attention(q, k, v, **kw).float()
+            want = attention_ref(q, k, v, **kw).float()
             err = (got - want).abs()
             ok = bool((err <= 4e-3 + 1e-2 * want.abs()).all())
             print(f"[{label}] case {case}: max abs error {float(err.max())} "
                   f"ok {ok}", flush=True)
             if not ok:
                 return 1
+            del q, k, v, got, want
     for case in CASES[-2:]:
         q, k, v = inputs(*case[:5])
         ms = event_ms(lambda: flash_attention(q, k, v, causal=True))
@@ -103,6 +129,17 @@ def main() -> int:
             q, k, v, is_causal=True, enable_gqa=True))
         print(f"[{label}] hd {case[4]} ms {ms:.6f} sdpa {sdpa:.6f}",
               flush=True)
+    b, h, kv, s, _, hd, _, window = WINDOW_CASES[-1]
+    q, k, v = windowed(b, h, kv, s, s, hd)
+    idx = torch.arange(s, device="cuda")
+    mask = ((idx[:, None] >= idx[None, :])
+            & (idx[:, None] - idx[None, :] < window))
+    ms = event_ms(lambda: flash_attention(q, k, v, causal=True,
+                                          window=window))
+    sdpa = event_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, enable_gqa=True))
+    print(f"[{label}] hd {hd} window {window} ms {ms:.6f} sdpa with the "
+          f"mask {sdpa:.6f}", flush=True)
     return 0
 
 

@@ -4,9 +4,9 @@
 // the window of the reference's _sdpa_naive/_sdpa_chunked
 // (repro/models/attention.py), which that kernel lacks.  Two kernels
 // share the entry point flash_attention_launch, and the caller names the
-// route: "wgmma" (bf16 at head dims 64 and 128 without a window, on the
-// tensor cores; see flash_attention_wgmma.cuh) and "fma" (below: every
-// other call, f32 and bf16 at head dims 16 to 256).
+// route: "wgmma" (bf16 at head dims 64, 128 and 256, with or without a
+// window, on the tensor cores; see flash_attention_wgmma.cuh) and "fma"
+// (below: f32 at head dims 16 to 256, bf16 at 16 and 32).
 //
 // The FMA kernel:
 // For each (b, h, query row i), with g = h / (H / KV) the shared KV head:
@@ -49,6 +49,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "flash_attention_wgmma.cuh"
 
@@ -222,8 +224,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-// Both dtypes at every head dim: bf16 at 64 and 128 comes here too when
-// the call has a window.
+// f32 at every head dim, bf16 at 16 and 32 (bf16 at 64, 128 and 256 is
+// the wgmma route's).
 template <typename T>
 cudaError_t dispatch(int hd, const void* q, const void* k, const void* v,
                      void* o, int b, int h, int sq, int sk, int group,
@@ -237,13 +239,30 @@ cudaError_t dispatch(int hd, const void* q, const void* k, const void* v,
   switch (hd) {
     FA_CASE(16)
     FA_CASE(32)
-    FA_CASE(64)
-    FA_CASE(128)
-    FA_CASE(256)
-    default:
-      return cudaErrorInvalidValue;
   }
+  if constexpr (std::is_same_v<T, float>) {
+    switch (hd) {
+      FA_CASE(64)
+      FA_CASE(128)
+      FA_CASE(256)
+    }
+  }
+  return cudaErrorInvalidValue;
 #undef FA_CASE
+}
+
+// The wgmma kernel at head dim HD, with the window compiled in or out.
+template <int HD>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
+                         void* o, int b, int h, int kvh, int sq, int sk,
+                         Strides qs, Strides ks, Strides vs, Strides os,
+                         float scale, int causal, int window,
+                         cudaStream_t stream) {
+  if (window > 0)
+    return fa_wgmma::launch<HD, true>(q, k, v, o, b, h, kvh, sq, sk, qs, ks,
+                                      vs, os, scale, causal, window, stream);
+  return fa_wgmma::launch<HD, false>(q, k, v, o, b, h, kvh, sq, sk, qs, ks,
+                                     vs, os, scale, causal, 0, stream);
 }
 
 }  // namespace
@@ -251,10 +270,11 @@ cudaError_t dispatch(int hd, const void* q, const void* k, const void* v,
 // q [B,H,Sq,hd], k/v [B,KV,Sk,hd], o [B,H,Sq,hd] given as element strides
 // (batch, seq, head) with the head dim contiguous; window 0 = none, else
 // row i sees keys j with i - j < window; dtype 0 = f32, 1 = bf16 (q, k, v
-// and o alike); route 0 = the FMA kernel (hd 16, 32, 64, 128 or 256),
-// 1 = the wgmma kernel (bf16, hd 64 or 128, no window, every stride of a
-// dim longer than 1 and every base 16-byte aligned).  Returns the launch's cudaError_t; a route that does
-// not take the arguments is cudaErrorInvalidValue.
+// and o alike); route 0 = the FMA kernel (f32 at hd 16, 32, 64, 128 or
+// 256, bf16 at 16 or 32), 1 = the wgmma kernel (bf16 at hd 64, 128 or 256,
+// every stride of a dim longer than 1 and every base 16-byte aligned).
+// Returns the launch's cudaError_t; a route that does not take the
+// arguments is cudaErrorInvalidValue.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, int b, int h,
     int kvh, int sq, int sk, int hd, int64_t qsb, int64_t qss, int64_t qsh,
@@ -267,13 +287,16 @@ extern "C" int flash_attention_launch(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (window < 0) return cudaErrorInvalidValue;
   if (route == 1) {
-    if (dtype != 1 || window != 0) return cudaErrorInvalidValue;
+    if (dtype != 1) return cudaErrorInvalidValue;
     if (hd == 64)
-      return fa_wgmma::launch<64>(q, k, v, o, b, h, kvh, sq, sk, qs, ks, vs,
-                                  os, scale, causal, st);
+      return launch_wgmma<64>(q, k, v, o, b, h, kvh, sq, sk, qs, ks, vs, os,
+                              scale, causal, window, st);
     if (hd == 128)
-      return fa_wgmma::launch<128>(q, k, v, o, b, h, kvh, sq, sk, qs, ks,
-                                   vs, os, scale, causal, st);
+      return launch_wgmma<128>(q, k, v, o, b, h, kvh, sq, sk, qs, ks, vs, os,
+                               scale, causal, window, st);
+    if (hd == 256)
+      return launch_wgmma<256>(q, k, v, o, b, h, kvh, sq, sk, qs, ks, vs, os,
+                               scale, causal, window, st);
     return cudaErrorInvalidValue;
   }
   if (route != 0) return cudaErrorInvalidValue;

@@ -1,18 +1,22 @@
 // bf16 flash attention on Hopper's tensor cores (sm_90a): wgmma fed by TMA.
-// The route of repro_torch's flash_attention for bf16 at head dims 64 and
-// 128; f32 and the other head dims keep the FMA kernel of
-// flash_attention.cu.  Replaces, with it, the Pallas TPU kernel
-// repro/kernels/flash_attention/kernel.py::flash_attention.
+// The route of repro_torch's flash_attention for bf16 at head dims 64, 128
+// and 256, with or without a sliding window; f32 and bf16 at head dims 16
+// and 32 keep the FMA kernel of flash_attention.cu.  Replaces, with it,
+// the Pallas TPU kernel repro/kernels/flash_attention/kernel.py::
+// flash_attention, and the window of the reference's _sdpa_naive/
+// _sdpa_chunked (repro/models/attention.py), which that kernel lacks.
 //
 // For each (b, h, query row i), with g = h / (H / KV) the shared KV head:
 //   s_j = q_i . k_j (f32),  masked to NEG_INF where causal && j > i
+//                           or window && i - j >= window
 //   o_i = sum_j p_j v_j / max(l, 1e-30),  p_j = exp(scale (s_j - m)),
 // with the running max m, the running sum l and the accumulator in f32.
 // P is rounded to bf16 for the P.V product (the tensor cores' A operand);
 // l sums the f32 p.
 //
-// Bound: at the dense prefill's shapes, the tensor cores' bf16 rate
-// (4 hd flops a query-key pair); see kernels/flash_attention/kernel.py.
+// Bound: at the dense prefill's shapes and recurrentgemma's local
+// attention, the tensor cores' bf16 rate (4 hd flops an unmasked
+// query-key pair); see kernels/flash_attention/kernel.py.
 //
 // Design (FlashAttention-3's shape):
 //   * a persistent grid, one block per SM, each block walking work items
@@ -22,28 +26,42 @@
 //     producer warpgroup (384 threads) whose one thread starts the loads;
 //     setmaxnreg moves registers from the producer (24 a thread) to the
 //     consumers (240);
-//   * the producer loads each item's Q, then its K/V tiles of 128 keys,
+//   * the producer loads each item's Q, then its K/V tiles of kBK keys,
 //     into a ring of stages in dynamic shared memory with TMA (4-d tensor
-//     maps over (hd, seq, head, batch), 128-byte swizzle, so a row of
-//     hd = 128 is two 64-wide boxes); Q, each stage's K and each stage's V
+//     maps over (hd, seq, head, batch), 128-byte swizzle, so a row of hd
+//     values is hd/64 boxes 64 wide); Q, each stage's K and each stage's V
 //     have a full mbarrier (transaction bytes) and an empty one that the
 //     8 consumer warps arrive on, so the next item's Q and K load while
 //     the consumers finish the current one; TMA's zero fill gives the
 //     ragged tails of Sq and Sk (keys past Sk are masked, since a zero key
 //     gives s = 0, not NEG_INF);
-//   * S = Q.K^T is hd/16 wgmma m64n128k16 with both operands in shared
+//   * the tiles are traits of the head dim (Smem<HD>): 128 keys a stage
+//     at hd 64 (4 stages) and 128 (2); at hd 256, 64 keys and 2 stages, so
+//     Q (64 KB) and the ring (2 x (32 + 32) KB) fit the 227 KB a block may
+//     use and a consumer thread holds O (128 f32), S (32) and P (16 bf16
+//     pairs) within its 240 registers;
+//   * S = Q.K^T is hd/16 wgmma m64n{kBK}k16 with both operands in shared
 //     memory (K's rows with hd contiguous are the K-major B operand);
 //   * the online softmax runs on S's accumulator fragments (each thread
 //     holds two rows, a quad of threads shares a row), with ex2.approx and
 //     the scale folded in as log2(e) hd^-0.5; the element mask runs only
-//     on the diagonal tile and on the tile that holds Sk's end;
-//   * O += P.V is 8 wgmma m64n{hd}k16 with P from registers (the S
+//     on the diagonal tile, the tile that holds Sk's end and, with a
+//     window, the tiles at the window's lower edge;
+//   * O += P.V is kBK/16 wgmma m64n{hd}k16 with P from registers (the S
 //     fragments, packed to bf16 pairs, are the A operand's layout) and V
 //     from shared memory with the transpose bit (V is hd-contiguous);
 //   * each step starts tile n's S and tile n-1's P.V together and runs
 //     tile n's softmax while P.V is on the tensor cores; the two consumer
 //     warpgroups take turns on the tensor cores (named barriers), so one's
 //     softmax also overlaps the other's products;
+//   * the window is a template flag, so a call without one compiles to
+//     the code without it; with one, an item's key loop starts at the
+//     tile holding its first row's first windowed key.  A row that sees
+//     no key (i >= Sk + window - 1) averages every key, as the
+//     reference's softmax over NEG_INF does, so an item holding one
+//     visits every key tile: masked logits are kMasked, whose scaled
+//     product is exact, so such a row gets p = 1 a key, and the epilogue
+//     divides its sum by Sk (the zero-filled keys past Sk add 0 to O);
 //   * the epilogue divides by l and stores bf16 pairs through the output's
 //     strides, so the model layout [B,S,H,hd] needs no copy.
 #pragma once
@@ -60,9 +78,14 @@ namespace fa_wgmma {
 using namespace tma;
 
 constexpr float kNegInf = -1e30f;   // the reference's NEG_INF, not -inf
+// The windowed kernel's stand-in for NEG_INF: -2^100 times the folded
+// scale is exact, so a row that has seen no key yet (m = kMasked) gets
+// p = exp2(fma(s, scale, -m scale)) = 1 exactly for its masked keys, as
+// the reference's softmax over NEG_INF does; past a seen key, p = 0 as
+// with -1e30.
+constexpr float kMasked = -0x1p100f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kBQ = 128;            // query rows per block
-constexpr int kBK = 128;            // keys per K/V stage
 constexpr int kConsumerWarps = 8;   // two warpgroups
 // and a producer warpgroup, of which one thread starts the loads: the
 // registers its setmaxnreg.dec gives back are the ones the consumers'
@@ -80,9 +103,13 @@ struct Strides {
 // once the item's last S is done, so the next item's Q loads meanwhile.
 template <int HD>
 struct Smem {
-  // K/V stages beside Q within the 227 KB a block may use (3 at hd 128
-  // fit too, and measured no faster)
-  static constexpr int kStages = HD == 128 ? 2 : 4;
+  // keys per K/V stage and stages in the ring, beside Q within the 227 KB
+  // a block may use: 128 keys at hd 64 (4 stages) and 128 (2; 3 fit too,
+  // and measured no faster); 64 keys at hd 256 (2 stages, 192 KB), where
+  // 128-key stages would not fit and an S of 128 keys would hold 32 more
+  // registers a consumer thread
+  static constexpr int kBK = HD == 256 ? 64 : 128;
+  static constexpr int kStages = HD == 64 ? 4 : 2;
   __nv_bfloat16 q[kBQ * HD];
   __nv_bfloat16 k[kStages][kBK * HD];
   __nv_bfloat16 v[kStages][kBK * HD];
@@ -190,6 +217,29 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// D[64x64] (+)= A[64x16] . B[16x64]; A and B from shared memory, both
+// K-major (no transpose): S over the 64-key tiles of hd 256.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // D[64x128] += A[64x16] . B[16x128]; A from registers (bf16 pairs in the
 // accumulator's fragment layout), B from shared memory N-major (transposed).
 __device__ __forceinline__ void wgmma_rs(float (&d)[64],
@@ -250,14 +300,51 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
+// D[64x256] += A[64x16] . B[16x256]; A from registers (bf16 pairs in the
+// accumulator's fragment layout), B from shared memory N-major (transposed):
+// O += P.V at hd 256.  FA_D8(i) names d[i..i+7] as operands.
+#define FA_D8(i)                                                          \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),             \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+__device__ __forceinline__ void wgmma_rs(float (&d)[128],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : FA_D8(0), FA_D8(8), FA_D8(16), FA_D8(24), FA_D8(32), FA_D8(40),
+        FA_D8(48), FA_D8(56), FA_D8(64), FA_D8(72), FA_D8(80), FA_D8(88),
+        FA_D8(96), FA_D8(104), FA_D8(112), FA_D8(120)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+#undef FA_D8
+
 // One work item: a 128-row query tile of one (head, batch).  Items are
 // numbered with the head fastest, then the batch, then the query tile,
 // which runs in reverse under causal masking (the longest first); a block
 // takes items in snake order (round r of gridDim.x items left to right
 // when r is even, right to left when odd), which balances the decreasing
-// causal lengths across the blocks.
+// causal lengths across the blocks.  Under MQA (one KV head) the heads'
+// items in flight read the same K/V tiles, from L2.
 struct Item {
-  int h, b, q0, n_tiles;
+  int h, b, q0, k0, n_tiles;   // k0: the first key tile's first key
 };
 
 __device__ __forceinline__ int item_of(int j) {   // this block's j-th item
@@ -265,8 +352,10 @@ __device__ __forceinline__ int item_of(int j) {   // this block's j-th item
   return j * g + ((j & 1) ? g - 1 - c : c);
 }
 
+template <int kBK, bool kWindow>
 __device__ __forceinline__ Item item_at(int w, int heads, int batch,
-                                        int n_qt, int sk, int causal) {
+                                        int n_qt, int sq, int sk, int causal,
+                                        int window) {
   Item it;
   it.h = w % heads;
   it.b = (w / heads) % batch;
@@ -274,7 +363,13 @@ __device__ __forceinline__ Item item_at(int w, int heads, int batch,
   it.q0 = (causal ? n_qt - 1 - z : z) * kBQ;
   // with causal masking, keys past the tile's last row are never seen
   const int kend = causal ? min(sk, it.q0 + kBQ) : sk;
-  it.n_tiles = (kend + kBK - 1) / kBK;
+  // with a window the tile's first row sees keys from q0 - window + 1; an
+  // item holding a row that sees no key (its last stored row,
+  // min(q0 + kBQ, sq) - 1, is window or more past Sk - 1) visits every key
+  it.k0 = 0;
+  if (kWindow && min(it.q0 + kBQ, sq) - window < sk)
+    it.k0 = (max(0, it.q0 - window + 1) / kBK) * kBK;
+  it.n_tiles = (kend - it.k0 + kBK - 1) / kBK;
   return it;
 }
 
@@ -282,18 +377,21 @@ __device__ __forceinline__ Item item_at(int w, int heads, int batch,
 // ring, waiting for the consumers to release Q (or a stage's K or V)
 // first.  Tile t counts across items, so the ring's stages and phases run
 // on from one item to the next.
-template <int HD>
+template <int HD, bool kWindow>
 __device__ __forceinline__ void produce(Smem<HD>& sm, const CUtensorMap* q_map,
                                         const CUtensorMap* k_map,
                                         const CUtensorMap* v_map, int n_items,
                                         int heads, int batch, int n_qt,
-                                        int group, int sk, int causal) {
+                                        int group, int sq, int sk, int causal,
+                                        int window) {
   constexpr int kBoxes = HD / kBox;
+  constexpr int kBK = Smem<HD>::kBK;
   constexpr int kStages = Smem<HD>::kStages;
   constexpr uint32_t kTileBytes = kBK * HD * 2;
   int t = 0;
   for (int j = 0; item_of(j) < n_items; ++j) {
-    const Item it = item_at(item_of(j), heads, batch, n_qt, sk, causal);
+    const Item it = item_at<kBK, kWindow>(item_of(j), heads, batch, n_qt, sq,
+                                          sk, causal, window);
     const int g = it.h / group;
     // the first item finds Q's buffer (and every stage) empty
     mbar_wait(&sm.q_empty, (j & 1) ^ 1);
@@ -305,18 +403,19 @@ __device__ __forceinline__ void produce(Smem<HD>& sm, const CUtensorMap* q_map,
     for (int n = 0; n < it.n_tiles; ++n, ++t) {
       const int s = t % kStages;
       const uint32_t parity = ((t / kStages) & 1) ^ 1;
+      const int key = it.k0 + n * kBK;
       mbar_wait(&sm.k_empty[s], parity);
       mbar_expect_tx(&sm.k_full[s], kTileBytes);
 #pragma unroll
       for (int c = 0; c < kBoxes; ++c)
         tma_load(sm.k[s] + c * kBK * kBox, k_map, &sm.k_full[s], c * kBox,
-                 n * kBK, g, it.b);
+                 key, g, it.b);
       mbar_wait(&sm.v_empty[s], parity);
       mbar_expect_tx(&sm.v_full[s], kTileBytes);
 #pragma unroll
       for (int c = 0; c < kBoxes; ++c)
         tma_load(sm.v[s] + c * kBK * kBox, v_map, &sm.v_full[s], c * kBox,
-                 n * kBK, g, it.b);
+                 key, g, it.b);
     }
   }
 }
@@ -324,9 +423,10 @@ __device__ __forceinline__ void produce(Smem<HD>& sm, const CUtensorMap* q_map,
 // S = Q.K^T over one key tile: hd/16 wgmma with both operands in shared
 // memory (K-major); started, not waited for.
 template <int HD>
-__device__ __forceinline__ void start_qk(float (&sc)[kBK / 2],
+__device__ __forceinline__ void start_qk(float (&sc)[Smem<HD>::kBK / 2],
                                          const __nv_bfloat16* q_wg,
                                          const __nv_bfloat16* k_tile) {
+  constexpr int kBK = Smem<HD>::kBK;
 #pragma unroll
   for (int kk = 0; kk < HD / 16; ++kk) {
     const int box = kk / 4, col = (kk % 4) * 16;
@@ -339,9 +439,10 @@ __device__ __forceinline__ void start_qk(float (&sc)[kBK / 2],
 // O += P.V over one key tile: kBK/16 wgmma with P from registers and V
 // N-major from shared memory; started, not waited for.
 template <int HD>
-__device__ __forceinline__ void start_pv(float (&acc)[HD / 2],
-                                         const uint32_t (&pa)[kBK / 16][4],
-                                         const __nv_bfloat16* v_tile) {
+__device__ __forceinline__ void start_pv(
+    float (&acc)[HD / 2], const uint32_t (&pa)[Smem<HD>::kBK / 16][4],
+    const __nv_bfloat16* v_tile) {
+  constexpr int kBK = Smem<HD>::kBK;
 #pragma unroll
   for (int kk = 0; kk < kBK / 16; ++kk)
     wgmma_rs(acc, pa[kk], desc_sw128(v_tile + kk * 16 * kBox,
@@ -350,22 +451,25 @@ __device__ __forceinline__ void start_pv(float (&acc)[HD / 2],
 }
 
 // The online softmax over the two rows a thread holds: mask (only on the
-// diagonal tile and the tile that holds Sk's end), the new running max,
-// alpha = exp(m_old - m_new), S replaced by p = exp(s - m_new) and l
-// rescaled and summed (each thread sums its own columns; the quad's sums
-// are added in the epilogue).
+// diagonal tile, the tile that holds Sk's end and, with a window, the
+// tiles at its lower edge), the new running max, alpha = exp(m_old -
+// m_new), S replaced by p = exp(s - m_new) and l rescaled and summed (each
+// thread sums its own columns; the quad's sums are added in the epilogue).
+template <int kBK, bool kWindow>
 __device__ __forceinline__ void online_softmax(
     float (&sc)[kBK / 2], float (&m)[2], float (&l)[2], float (&alpha)[2],
     const int (&qi)[2], int c0, int k0, int q0, int sk, int causal,
-    float scale_log2) {
-  if ((causal && k0 + kBK - 1 > q0) || k0 + kBK > sk) {
+    int window, float scale_log2) {
+  if ((causal && k0 + kBK - 1 > q0) || k0 + kBK > sk ||
+      (kWindow && q0 + kBQ - 1 - k0 >= window)) {
 #pragma unroll
     for (int j = 0; j < kBK / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int key = k0 + j * 8 + c0 + (e & 1);
-        if (key >= sk || (causal && key > qi[e >> 1]))
-          sc[j * 4 + e] = kNegInf;
+        if (key >= sk || (causal && key > qi[e >> 1]) ||
+            (kWindow && qi[e >> 1] - key >= window))
+          sc[j * 4 + e] = kWindow ? kMasked : kNegInf;
       }
   }
   float mx[2] = {m[0], m[1]};
@@ -397,6 +501,7 @@ __device__ __forceinline__ void online_softmax(
 
 // P in bf16 pairs, in the A operand's fragment layout (which is the
 // accumulator's: registers 8kk..8kk+7 of S are k-step kk's A fragment).
+template <int kBK>
 __device__ __forceinline__ void pack_p(uint32_t (&pa)[kBK / 16][4],
                                        const float (&sc)[kBK / 2]) {
 #pragma unroll
@@ -427,13 +532,16 @@ __device__ __forceinline__ void release(uint64_t* bar, int lane) {
 // step starts S = Q.K_n^T and O += P_{n-1}.V_{n-1} together (in its turn),
 // waits for S only, and runs the softmax of tile n while P.V is on the
 // tensor cores.
-template <int HD>
+template <int HD, bool kWindow>
 __device__ __forceinline__ void consume(Smem<HD>& sm, __nv_bfloat16* o,
                                         int sq, int sk, Strides os,
                                         float scale_log2, int causal,
-                                        int n_items, int heads, int batch,
-                                        int n_qt, int warp, int lane) {
+                                        int window, int n_items, int heads,
+                                        int batch, int n_qt, int warp,
+                                        int lane) {
+  constexpr int kBK = Smem<HD>::kBK;
   constexpr int kStages = Smem<HD>::kStages;
+  constexpr float kMask = kWindow ? kMasked : kNegInf;
   const int wg = warp / 4;
   const int r0 = wg * 64 + (warp % 4) * 16 + lane / 4;   // and r0 + 8
   const int c0 = (lane % 4) * 2;   // this thread's first column of an n8
@@ -448,11 +556,12 @@ __device__ __forceinline__ void consume(Smem<HD>& sm, __nv_bfloat16* o,
   if (wg == 1) pass_turn(wg);   // the first turn is warpgroup 0's
   int t = 0;                    // tiles consumed, across items
   for (int j = 0; item_of(j) < n_items; ++j) {
-    const Item it = item_at(item_of(j), heads, batch, n_qt, sk, causal);
+    const Item it = item_at<kBK, kWindow>(item_of(j), heads, batch, n_qt, sq,
+                                          sk, causal, window);
     const int qi[2] = {it.q0 + r0, it.q0 + r0 + 8};
 #pragma unroll
     for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
-    float m[2] = {kNegInf, kNegInf};
+    float m[2] = {kMask, kMask};
     float l[2] = {0.f, 0.f};
     float alpha[2];
 
@@ -468,9 +577,9 @@ __device__ __forceinline__ void consume(Smem<HD>& sm, __nv_bfloat16* o,
     fence_regs(sc);
     if (it.n_tiles == 1) release(&sm.q_empty, lane);
     release(&sm.k_empty[t % kStages], lane);
-    online_softmax(sc, m, l, alpha, qi, c0, 0, it.q0, sk, causal,
-                   scale_log2);
-    pack_p(pa, sc);
+    online_softmax<kBK, kWindow>(sc, m, l, alpha, qi, c0, it.k0, it.q0, sk,
+                                 causal, window, scale_log2);
+    pack_p<kBK>(pa, sc);
 
     for (int n = 1; n < it.n_tiles; ++n) {
       const int s = (t + n) % kStages, ps = (t + n - 1) % kStages;
@@ -488,8 +597,9 @@ __device__ __forceinline__ void consume(Smem<HD>& sm, __nv_bfloat16* o,
       fence_regs(sc);
       if (n == it.n_tiles - 1) release(&sm.q_empty, lane);
       release(&sm.k_empty[s], lane);
-      online_softmax(sc, m, l, alpha, qi, c0, n * kBK, it.q0, sk, causal,
-                     scale_log2);
+      online_softmax<kBK, kWindow>(sc, m, l, alpha, qi, c0,
+                                   it.k0 + n * kBK, it.q0, sk, causal,
+                                   window, scale_log2);
       wgmma_wait<0>();            // P.V is done
       fence_regs(acc);
       fence_regs(pa);
@@ -498,7 +608,7 @@ __device__ __forceinline__ void consume(Smem<HD>& sm, __nv_bfloat16* o,
       for (int jj = 0; jj < HD / 8; ++jj)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[jj * 4 + e] *= alpha[e >> 1];
-      pack_p(pa, sc);
+      pack_p<kBK>(pa, sc);
     }
 
     // the last tile's P.V
@@ -516,11 +626,14 @@ __device__ __forceinline__ void consume(Smem<HD>& sm, __nv_bfloat16* o,
     release(&sm.v_empty[ls], lane);
     t += it.n_tiles;
 
-    // epilogue: o = acc / max(l, 1e-30) in bf16, through the strides
+    // epilogue: o = acc / max(l, 1e-30) in bf16, through the strides (a
+    // row that saw no key summed p = 1 over every key tile: its mean is
+    // over Sk keys)
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      if (kWindow && m[r] == kMask) l[r] = static_cast<float>(sk);
       l[r] = 1.f / fmaxf(l[r], 1e-30f);
     }
 #pragma unroll
@@ -543,15 +656,16 @@ __device__ __forceinline__ void consume(Smem<HD>& sm, __nv_bfloat16* o,
 constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;
 
-template <int HD>
+template <int HD, bool kWindow>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                    const __grid_constant__ CUtensorMap k_map,
                    const __grid_constant__ CUtensorMap v_map,
                    __nv_bfloat16* __restrict__ o, int sq, int sk, int heads,
                    int batch, int group, Strides os, float scale_log2,
-                   int causal) {
-  static_assert(HD == 64 || HD == 128, "head dim 64 or 128");
+                   int causal, int window) {
+  static_assert(HD == 64 || HD == 128 || HD == 256,
+                "head dim 64, 128 or 256");
   constexpr int kStages = Smem<HD>::kStages;
   extern __shared__ unsigned char smem_raw[];
   Smem<HD>& sm = *reinterpret_cast<Smem<HD>*>(
@@ -579,13 +693,13 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
         kProducerRegs));
     if (warp == kConsumerWarps && lane == 0)
-      produce<HD>(sm, &q_map, &k_map, &v_map, n_items, heads, batch, n_qt,
-                  group, sk, causal);
+      produce<HD, kWindow>(sm, &q_map, &k_map, &v_map, n_items, heads, batch,
+                           n_qt, group, sq, sk, causal, window);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
         kConsumerRegs));
-    consume<HD>(sm, o, sq, sk, os, scale_log2, causal, n_items, heads,
-                batch, n_qt, warp, lane);
+    consume<HD, kWindow>(sm, o, sq, sk, os, scale_log2, causal, window,
+                         n_items, heads, batch, n_qt, warp, lane);
   }
 }
 
@@ -615,11 +729,12 @@ inline bool make_map(CUtensorMap* map, const void* ptr, int batch, int heads,
 // Encode the maps (passed by value, so a captured CUDA graph keeps them),
 // raise the kernel's shared-memory limit once, launch.  Returns the
 // launch's cudaError_t; a refused map is cudaErrorInvalidValue.
-template <int HD>
+template <int HD, bool kWindow>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int b, int h, int kvh, int sq, int sk, Strides qs,
                    Strides ks, Strides vs, Strides os, float scale,
-                   int causal, cudaStream_t stream) {
+                   int causal, int window, cudaStream_t stream) {
+  constexpr int kBK = Smem<HD>::kBK;
   CUtensorMap qm, km, vm;
   if (!make_map(&qm, q, b, h, sq, HD, qs, kBQ) ||
       !make_map(&km, k, b, kvh, sk, HD, ks, kBK) ||
@@ -635,7 +750,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   if (err != cudaSuccess) return err;
   if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
   if (!configured[dev]) {
-    err = cudaFuncSetAttribute(flash_wgmma_kernel<HD>,
+    err = cudaFuncSetAttribute(flash_wgmma_kernel<HD, kWindow>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err == cudaSuccess)
@@ -650,9 +765,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   // persistent: one block per SM (at most one per item)
   const int grid =
       static_cast<int>(n_items < n_sms[dev] ? n_items : n_sms[dev]);
-  flash_wgmma_kernel<HD><<<grid, kThreads, smem, stream>>>(
+  flash_wgmma_kernel<HD, kWindow><<<grid, kThreads, smem, stream>>>(
       qm, km, vm, static_cast<__nv_bfloat16*>(o), sq, sk, h, b, h / kvh, os,
-      scale * kLog2e, causal);
+      scale * kLog2e, causal, window);
   return cudaGetLastError();
 }
 

@@ -14,31 +14,38 @@ ctypes.
   Sq·Sk/2 when causal) against moving q, k, v and o once: at granite's
   B=4, S=4096, H=32, KV=8, hd=128 that is 5.50e11 flops (0.556 ms at the
   H100 SXM's 989 TFLOP/s bf16 tensor rate) against 335 MB (0.100 ms at
-  3.35 TB/s).
+  3.35 TB/s); at recurrentgemma's local attention (B=4, H=10, KV=1,
+  S=4096, hd=256, window 2048) 2.58e11 flops (0.261 ms) against 185 MB.
 * **Two routes, one entry point** (``csrc/flash_attention.cu``), picked
-  by :func:`_route` from the dtype, the head dim and the window:
+  by :func:`_route` from the dtype and the head dim:
 
-  - ``"wgmma"`` — bf16 at hd 64 and 128 without a window
+  - ``"wgmma"`` — bf16 at hd 64, 128 and 256, with or without a window
     (``csrc/flash_attention_wgmma.cuh``),
     FlashAttention-3's shape: a persistent block per SM walks 128-row
     query tiles (the longest causal ones first); two consumer warpgroups
     of 64 rows and a producer warpgroup whose one thread loads Q and K/V
-    tiles of 128 keys with TMA into a ring of shared-memory stages
-    (mbarrier full/empty pairs, 128-byte swizzle, zero fill past Sq/Sk);
-    S = Q·Kᵀ and O += P·V on ``wgmma``, the online softmax on S's
-    accumulator fragments while the previous tile's P·V runs, the two
-    warpgroups taking turns on the tensor cores.  P is rounded to bf16 as
-    the P·V product's A operand; m, l and the accumulator stay f32.
-  - ``"fma"`` — every other call: f32 at every head dim, bf16 at hd 16,
-    32 and 256, and every windowed call: one 256-thread block
-    per query tile and head, four threads per row (64-row tiles, K/V
-    tiles of 32 rows) or eight at hd 256 (32-row tiles, K/V tiles of 16
-    rows), K/V as f32 in shared memory, P kept in f32, on the f32 FMA
-    units (f32 must stay within 2e-5 of the plain version, which TF32
-    tensor cores cannot give); the key loop visits only the tiles that
-    the window and the causal mask leave visible to some row of the
-    query tile.  The window is a template flag of the kernel, so calls
-    without one run no window code.
+    tiles with TMA into a ring of shared-memory stages (mbarrier
+    full/empty pairs, 128-byte swizzle, zero fill past Sq/Sk): 128 keys
+    a tile at hd 64 (4 stages) and 128 (2), 64 keys at hd 256 (2 stages,
+    192 KB with Q; S = Q·Kᵀ as 16 ``m64n64k16``, O += P·V as 4
+    ``m64n256k16``); S = Q·Kᵀ and O += P·V on ``wgmma``, the online
+    softmax on S's accumulator fragments while the previous tile's P·V
+    runs, the two warpgroups taking turns on the tensor cores.  P is
+    rounded to bf16 as the P·V product's A operand; m, l and the
+    accumulator stay f32.  The window is a template flag: a windowed
+    item's key loop starts at the tile of its first row's first key, the
+    element mask also runs on the window's lower edge tiles, and an item
+    holding a row that sees no key visits every key, so that row
+    averages them as the reference's softmax over NEG_INF does.
+  - ``"fma"`` — f32 at every head dim and bf16 at hd 16 and 32, windowed
+    or not: one 256-thread block per query tile and head, four threads
+    per row (64-row tiles, K/V tiles of 32 rows) or eight at hd 256
+    (32-row tiles, K/V tiles of 16 rows), K/V as f32 in shared memory, P
+    kept in f32, on the f32 FMA units (f32 must stay within 2e-5 of the
+    plain version, which TF32 tensor cores cannot give); the key loop
+    visits only the tiles that the window and the causal mask leave
+    visible to some row of the query tile.  The window is a template
+    flag of this kernel too.
 
   Tensors are addressed through strides, so the model layout [B,S,H,hd]
   runs without a copy; the ``wgmma`` route's TMA needs every stride of a
@@ -59,10 +66,10 @@ import torch
 from repro_torch.kernels import build, check_tma
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
-#: Head dims the kernels are compiled for (the ``fma`` route's).
+#: Head dims the wrapper takes (f32 runs each on the ``fma`` route).
 HEAD_DIMS = (16, 32, 64, 128, 256)
-#: Head dims of the ``wgmma`` route (bf16 only).
-WGMMA_HEAD_DIMS = (64, 128)
+#: Head dims of the ``wgmma`` route (bf16 only, with or without a window).
+WGMMA_HEAD_DIMS = (64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ROUTES = {"fma": 0, "wgmma": 1}
 
@@ -72,9 +79,11 @@ _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
 
 
 def _route(dtype: torch.dtype, hd: int, window: int = 0) -> str:
-    """The kernel a CUDA call takes: ``"wgmma"`` for bf16 at hd 64 and
-    128 without a window, ``"fma"`` otherwise."""
-    if dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS and not window:
+    """The kernel a CUDA call takes: ``"wgmma"`` for bf16 at hd 64, 128
+    and 256, with or without a window; ``"fma"`` otherwise.  ``window``
+    does not change the route (both kernels take one)."""
+    del window
+    if dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS:
         return "wgmma"
     return "fma"
 

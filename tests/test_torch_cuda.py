@@ -202,8 +202,8 @@ def test_leaf_search_pool_raises_without_launching(break_arg):
 
 # (B, H, KV, S, hd, causal, dtype, atol, rtol): the reference kernel
 # test's shapes, two ragged ones, the models' widths, then the wgmma
-# route's (bf16 at hd 64 and 128): causal and full, GQA groups 1, 3 and 4,
-# ragged S (77, 300, 4097) and granite-3-8b's full prefill
+# route's (bf16 at hd 64, 128 and 256): causal and full, GQA groups 1, 3
+# and 4, ragged S (77, 300, 4097) and granite-3-8b's full prefill
 FLASH_CASES = [(2, 4, 2, 256, 64, True, "float32", 2e-5, 2e-5),
                (1, 8, 8, 128, 128, False, "float32", 2e-5, 2e-5),
                (2, 2, 1, 512, 32, True, "float32", 2e-5, 2e-5),
@@ -223,6 +223,9 @@ FLASH_CASES = [(2, 4, 2, 256, 64, True, "float32", 2e-5, 2e-5),
                (1, 4, 1, 300, 128, False, "bfloat16", 4e-3, 1e-2),
                (1, 2, 2, 4097, 128, True, "bfloat16", 4e-3, 1e-2),
                (1, 3, 1, 4097, 64, False, "bfloat16", 4e-3, 1e-2),
+               (1, 4, 4, 300, 256, True, "bfloat16", 4e-3, 1e-2),
+               (1, 4, 4, 300, 256, False, "bfloat16", 4e-3, 1e-2),
+               (2, 6, 2, 256, 256, True, "bfloat16", 4e-3, 1e-2),
                (4, 32, 8, 4096, 128, True, "bfloat16", 4e-3, 1e-2)]
 
 
@@ -266,7 +269,7 @@ def test_flash_attention_kernel_matches_plain_version(b, h, kv, s, hd, causal,
                                           (300, 77, False),
                                           (77, 4097, False),
                                           (300, 130, True)])
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 256])
 def test_flash_attention_wgmma_route_sq_ne_sk(sq, sk, causal, hd):
     """Queries and keys of different lengths on the wgmma route (causal
     aligned as the reference's mask: row i sees keys j <= i)."""
@@ -281,18 +284,23 @@ def test_flash_attention_wgmma_route_sq_ne_sk(sq, sk, causal, hd):
     close(got, attention_ref(q, k, v, causal=causal), 4e-3, 1e-2)
 
 
-# (B, H, KV, Sq, Sk, hd, causal, window): the sliding window on the FMA
-# route, at every head dim in both dtypes (a window that clips, one at
-# least S, window 1, Sq > Sk with rows that see no key, windowed full
-# attention over Sq < Sk and Sq = Sk), and recurrentgemma's local
-# attention (B 1 of 4, H 10, MQA, S 4096, hd 256, window 2048)
+# (B, H, KV, Sq, Sk, hd, causal, window): the sliding window at every
+# head dim in both dtypes (bf16 at hd 64, 128 and 256 on the wgmma route,
+# the rest on the FMA route): a window that clips, one at least S, window
+# 1, Sq > Sk with rows that see no key, windowed full attention over
+# Sq < Sk and Sq = Sk, window edges inside the wgmma route's 64-key (hd
+# 256) and 128-key tiles, and recurrentgemma's local attention (B 1 of 4,
+# H 10, MQA, S 4096, hd 256, window 2048)
 WINDOWED_CASES = [(2, 4, 1, 300, 300, hd, True, 64)
                   for hd in (16, 64, 128, 256)] + [
                  (1, 4, 2, 200, 200, 256, True, 512),
                  (2, 2, 1, 77, 77, 64, True, 1),
                  (1, 4, 2, 356, 100, 128, True, 96),
+                 (1, 4, 2, 356, 100, 256, True, 96),
                  (1, 4, 2, 100, 356, 256, False, 96),
                  (1, 2, 2, 130, 130, 32, False, 17),
+                 (1, 4, 2, 200, 200, 256, True, 65),
+                 (1, 4, 2, 200, 200, 128, True, 129),
                  (1, 10, 1, 4096, 4096, 256, True, 2048)]
 
 
@@ -306,11 +314,12 @@ def test_flash_attention_window_matches_plain_version(
                for shape in ((b, h, sq, hd), (b, kv, sk, hd),
                              (b, kv, sk, hd)))
     kw = dict(causal=causal, window=window)
-    assert _route(q.dtype, hd, window) == "fma"
+    route = _route(q.dtype, hd, window)
+    assert route == ("wgmma" if dtype == "bfloat16" and hd >= 64 else "fma")
     n0 = route_counts()
     got = flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
-    assert_launched(n0, 1, "fma")
+    assert_launched(n0, 1, route)
     atol, rtol = (2e-5, 2e-5) if dtype == "float32" else (4e-3, 1e-2)
     close(got, attention_ref(q, k, v, **kw), atol, rtol)
 

@@ -112,12 +112,11 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(break_arg):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("hd", HEAD_DIMS)
 def test_route_depends_on_dtype_head_dim_and_window(dtype, hd, window):
-    """bf16 at hd 64 and 128 without a window takes the wgmma kernel; f32
-    at every head dim (it must stay within 2e-5, which TF32 tensor cores
-    cannot give), bf16 at 16, 32 and 256, and every windowed call take the
-    FMA kernel."""
-    want = ("wgmma" if dtype == "bfloat16" and hd in (64, 128) and not window
-            else "fma")
+    """bf16 at hd 64, 128 and 256 takes the wgmma kernel with or without
+    a window; f32 at every head dim (it must stay within 2e-5, which TF32
+    tensor cores cannot give) and bf16 at 16 and 32 take the FMA kernel,
+    windowed or not."""
+    want = "wgmma" if dtype == "bfloat16" and hd in (64, 128, 256) else "fma"
     assert _route(getattr(torch, dtype), hd, window) == want
 
 
@@ -126,7 +125,9 @@ def test_route_depends_on_dtype_head_dim_and_window(dtype, hd, window):
 # row sees itself), Sq > Sk with rows that see no key (they average every
 # key, as the reference's softmax over NEG_INF does), full attention with
 # a window over Sq < Sk, full attention with a window, and cross-shaped
-# Sq != Sk
+# Sq != Sk; then windows whose edge falls inside the wgmma route's
+# 64-key tiles (hd 256) and 128-key tiles (hd 128) for its 128-row query
+# tiles, and rows that see no key at hd 256, causal and full
 WINDOWED = [(2, 4, 1, 40, 40, 256, True, 8),
             (1, 4, 2, 96, 96, 64, True, 16),
             (1, 4, 2, 40, 40, 32, True, 64),
@@ -134,7 +135,11 @@ WINDOWED = [(2, 4, 1, 40, 40, 256, True, 8),
             (1, 4, 2, 56, 24, 128, True, 10),
             (1, 4, 2, 24, 56, 64, False, 10),
             (1, 2, 2, 48, 48, 16, False, 5),
-            (1, 4, 4, 30, 70, 64, False, 0)]
+            (1, 4, 4, 30, 70, 64, False, 0),
+            (1, 2, 1, 200, 200, 256, True, 65),
+            (1, 2, 1, 200, 200, 128, True, 129),
+            (1, 2, 1, 200, 96, 256, True, 40),
+            (1, 2, 1, 200, 96, 256, False, 40)]
 
 
 @pytest.mark.parametrize("b,h,kv,sq,sk,hd,causal,window", WINDOWED)
@@ -161,11 +166,14 @@ def test_window_matches_the_reference(b, h, kv, sq, sk, hd, causal, window,
 
 
 def test_head_dim_256_takes_the_fma_route_alone():
-    """The wgmma kernel is built for hd 64 and 128: hd 256 is an FMA
-    head dim, and a head dim neither route is built for is refused
-    before any launch."""
-    assert 256 in HEAD_DIMS and 256 not in WGMMA_HEAD_DIMS
-    assert _route(torch.bfloat16, 256) == "fma"
+    """At hd 256 the FMA kernel is f32's route alone; bf16 takes the
+    wgmma kernel (built for hd 64, 128 and 256), with or without a window,
+    as recurrentgemma's local attention does.  A head dim neither route
+    is built for, and a negative window, are refused before any launch."""
+    assert 256 in HEAD_DIMS and WGMMA_HEAD_DIMS == (64, 128, 256)
+    for window in (0, 2048):
+        assert _route(torch.float32, 256, window) == "fma"
+        assert _route(torch.bfloat16, 256, window) == "wgmma"
     _, (q, k, v) = make_inputs(0, 1, 4, 2, 64, 64, "bfloat16")
     wide = [torch.cat([t] * 8, dim=-1) for t in (q, k, v)]    # hd 512
     n0 = flash_attention.launches

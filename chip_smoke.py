@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port on one CUDA card: the Sherman index and the LM
-serving paths.
+"""Drive the PyTorch port on one CUDA card: the Sherman index, the LM
+serving paths and the LM training path.
 
     python3 chip_smoke.py                      # the full check, one GPU
     python3 chip_smoke.py --records 134217728  # a smaller deployment phase
@@ -8,8 +8,9 @@ serving paths.
 Phases, in order; any failure raises and exits non-zero:
 
 1. device  — require CUDA; print the card's name and power limit;
-2. build   — compile the three kernels from ``src/repro_torch/csrc``, one
-   ``nvcc`` per source, all started together; print ptxas's registers,
+2. build   — compile the five kernel sources from ``src/repro_torch/csrc``
+   (the three kernels and the two backward kernels), one ``nvcc`` per
+   source, all started together; print ptxas's registers,
    spills and performance notes per kernel (raise on a spill) and the
    count of ``HGMMA`` (wgmma) instructions in the flash library's SASS
    (raise if 0);
@@ -97,6 +98,25 @@ Phases, in order; any failure raises and exits non-zero:
 Each LM cell prints tokens/s, the device idle share of a profiled decode
 step, peak memory and K2's launches by route, and raises if the launches
 differ from the counts above.
+
+13. lm-parity-train — one ``make_train_step`` (loss, backward, AdamW) of
+   a reduced f32 model of every family on the card (K2's and K3's
+   backward kernels) == the CPU (the plain versions' autograd): loss,
+   grad norm and every parameter and moment after the update within 1e-4;
+14. train-smollm-135m — ``launch/train.py::run`` at full width in bf16,
+   4 steps (1 warm, 3 timed) at 4 × 4096 tokens: a line a step, tokens/s,
+   peak memory, K2's forward and backward launches a step (30 and 30);
+   a checkpoint (bf16 weights, f32 moments) restored bit for bit; a
+   profiled fifth step (the top kernels, the device's idle share); ``run``
+   resumed from the checkpoint, whose step gives the fifth step's loss;
+15. train-rwkv6-1.6b — the same at 4 × 2048 tokens, K3's launches (24 and
+   24 a step).
+
+Phase 3 also holds K2's and K3's backward kernels against their plain
+versions' autograd (f32 and bf16, Sq != Sk, rows that see no key; a rerun
+bit for bit) and times them at smollm's and recurrentgemma's attention
+shapes and rwkv6's training shape, beside their bounds, the plain
+versions and SDPA's backward.
 
 The line before the last is a JSON object with the kernels' numbers; the
 last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -2041,6 +2061,231 @@ def phase_wkv(torch, wkv6, wkv6_ref, wkv6_seq):
                 host_ms=call_ms, library_ms=None)
 
 
+# K2's backward (B, H, KV, Sq, Sk, hd, causal, window, dtype, atol, rtol)
+# against the plain version's autograd on the same inputs: f32 at every
+# head dim with GQA and MQA, causal and full, windows, Sq != Sk both ways
+# and rows that see no key (Sq 300 > Sk 100 + window 40, and at hd 256),
+# held at 2e-5 as the forward's f32 cases (the two sum in other orders,
+# in f32); bf16 at every head
+# dim, held at 4e-2 absolute plus 2e-2 relative: dq, dk and dv are rounded
+# to bf16 on both sides (one step is 2^-8 to 2^-7 of a value, 0.03125 at
+# |g| 4-8), and the kernel's D = dO.o reads the forward's bf16 o where
+# the plain version's autograd keeps o in f32; then the two timed shapes,
+# smollm-135m's training shape and recurrentgemma-2b's local attention,
+# which the plain version's [S, S] f32 gradient still fits at full size.
+_BF16_BWD = ("bfloat16", 4e-2, 2e-2)
+FLASH_BWD_CASES = [(2, 4, 2, 64, 64, 64, True, 0) + _F32,
+                   (1, 2, 1, 100, 37, 16, False, 0) + _F32,
+                   (1, 4, 1, 300, 100, 128, True, 40) + _F32,
+                   (1, 2, 2, 130, 130, 256, True, 17) + _F32,
+                   (1, 3, 3, 77, 77, 32, False, 9) + _F32,
+                   (2, 4, 2, 77, 200, 64, False, 0) + _F32,
+                   (1, 4, 2, 356, 100, 256, True, 96) + _F32,
+                   (2, 9, 3, 512, 512, 64, True, 0) + _F32,
+                   (2, 4, 2, 256, 256, 64, True, 0) + _BF16_BWD,
+                   (1, 2, 1, 200, 120, 256, True, 64) + _BF16_BWD,
+                   (1, 2, 1, 50, 80, 128, False, 0) + _BF16_BWD,
+                   (1, 6, 3, 130, 130, 16, False, 0) + _BF16_BWD,
+                   (1, 4, 2, 100, 100, 32, True, 0) + _BF16_BWD]
+FLASH_BWD_TIMED = [(4, 9, 3, 4096, 4096, 64, True, 0) + _BF16_BWD,
+                   (4, 10, 1, 4096, 4096, 256, True, 2048) + _BF16_BWD]
+# K3's backward (B, H, T, N), f32: its checkpoint chunks of 16 steps (1,
+# 15, 17, 33 and 67 steps), every head size, and rwkv6-1.6b's training
+# shape (T 2048, the train cell's), each gradient held within
+# 1e-4 · max(1, max|g|) absolute, the gradient leaves' criterion of
+# tests/test_torch_train_grad.py: f32 sums in other orders, and du sums
+# B·T terms (8,192 at T 2048; earlier runs read 5.4e-3 there against
+# partial sums in the hundreds).
+WKV_BWD_CASES = [(2, 3, 1, 16), (2, 3, 15, 16), (1, 2, 17, 32),
+                 (2, 2, 40, 64), (1, 1, 33, 64), (2, 32, 67, 64),
+                 (4, 32, 2048, 64)]
+WKV_BWD_TOL = 1e-4
+
+
+def once_ms(torch, fn, samples: int = 1) -> float:
+    """The median over ``samples`` of one call's time (CUDA events), after
+    one warm call: for plain versions that take seconds a call."""
+    fn()
+    return _event_ms(torch, fn, 1, samples)
+
+
+def attention_bwd_bound(torch, b, h, kv, sq, sk, hd, causal, window,
+                        itemsize):
+    """(bound ms, bound by, pairs a head, flops, bytes) of K2's backward:
+    five products of hd per unmasked (query, key) pair and head (S, dP,
+    dV, dK, dQ: 10·hd flops) at the bf16 tensor rate (the f32 FMA rate in
+    f32), against q, k, v, o, dO in and dq, dk, dv out once."""
+    pairs = sum(max(0, min(i + 1 if causal else sk, sk)
+                    - (max(0, i - window + 1) if window else 0))
+                for i in range(sq))
+    n_ops = 10 * b * h * pairs * hd
+    n_bytes = itemsize * hd * (4 * b * h * sq + 4 * b * kv * sk)
+    rate = BF16_TENSOR_OPS_S if itemsize == 2 else SCALAR_OPS_S
+    ops_ms, bytes_ms = n_ops / rate * 1e3, n_bytes / HBM_BYTES_S * 1e3
+    return (max(ops_ms, bytes_ms),
+            "operations" if ops_ms >= bytes_ms else "bytes", pairs, n_ops,
+            n_bytes)
+
+
+def phase_flash_bwd(torch, flash_attention, flash_attention_bwd,
+                    attention_bwd_ref):
+    """K2's backward kernel against the plain version's autograd
+    (``FLASH_BWD_CASES``, then the timed shapes), bit for bit on a rerun;
+    times: the kernel (a CUDA graph of calls, and an eager call), the
+    plain version, and SDPA's backward (its forward + backward minus its
+    forward) as the library yardstick.  Returns the numbers of the timed
+    shapes."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    torch.cuda.reset_peak_memory_stats()
+    max_err, timed_numbers = 0.0, []
+    for case in FLASH_BWD_CASES + FLASH_BWD_TIMED:
+        b, h, kv, sq, sk, hd, causal, window, dt, atol, rtol = case
+        dtype = getattr(torch, dt)
+        q, do = (torch.randn((b, h, sq, hd), generator=gen, device="cuda")
+                 .to(dtype) for _ in range(2))
+        k, v = (torch.randn((b, kv, sk, hd), generator=gen, device="cuda")
+                .to(dtype) for _ in range(2))
+        kw = dict(causal=causal, window=window)
+        o = flash_attention(q, k, v, **kw)
+        n0 = flash_attention_bwd.launches
+        got = flash_attention_bwd(q, k, v, o, do, **kw)
+        again = flash_attention_bwd(q, k, v, o, do, **kw)
+        want = attention_bwd_ref(q, k, v, do, **kw)
+        torch.cuda.synchronize()
+        if flash_attention_bwd.launches != n0 + 2:
+            raise AssertionError("flash_attention_bwd did not count its "
+                                 "launches")
+        what = (f"flash_attention_bwd B={b} H={h} KV={kv} Sq={sq} Sk={sk} "
+                f"hd={hd} causal={causal} window={window} {dt}")
+        errs = [_check_close(torch, g, w, atol, rtol, f"{what} {n}")
+                for n, g, w in zip(("dq", "dk", "dv"), got, want)]
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise AssertionError(f"{what}: a rerun changed the bits")
+        max_err = max(max_err, *errs)
+        log(f"kernel  {what}: max abs error dq {errs[0]} dk {errs[1]} dv "
+            f"{errs[2]} (atol {atol} rtol {rtol}; max |dq|,|dk|,|dv| "
+            + ", ".join(f"{float(w.float().abs().max()):.4g}" for w in want)
+            + "); a rerun gives the same bits")
+        del got, again, want
+        if case not in FLASH_BWD_TIMED:
+            continue
+        grads = tuple(torch.empty_like(t) for t in (q, k, v))
+        kernel = lambda: flash_attention_bwd(q, k, v, o, do, grads=grads,
+                                             **kw)
+        ms = device_ms(torch, kernel, reps=5, samples=3)
+        call_ms = host_ms(torch, kernel, reps=5, samples=3)
+        plain_ms = once_ms(torch, lambda: attention_bwd_ref(q, k, v, do,
+                                                            **kw))
+        # SDPA's backward: forward + backward minus forward, eager
+        mask = None
+        if window:
+            idx = torch.arange(sq, device="cuda")
+            mask = ((idx[:, None] >= idx[None, :])
+                    & (idx[:, None] - idx[None, :] < window))
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        sdpa = lambda: F.scaled_dot_product_attention(
+            *leaves, attn_mask=mask, is_causal=causal and mask is None,
+            enable_gqa=True)
+        # SDPA computes the same function (its backward rounds P and dS to
+        # bf16 for the tensor cores): a sanity check at twice the bf16
+        # tolerance before timing it
+        lib_grads = torch.autograd.grad(sdpa(), leaves, do)
+        kernel()
+        lib_err = max(_check_close(torch, g, w, 2 * atol, 2 * rtol,
+                                   f"SDPA's {n} vs {what}")
+                      for n, g, w in zip(("dq", "dk", "dv"), lib_grads,
+                                         grads))
+        fwd_ms = host_ms(torch, sdpa, reps=5, samples=3)
+        both_ms = host_ms(torch, lambda: torch.autograd.grad(
+            sdpa(), leaves, do), reps=5, samples=3)
+        lib_ms = both_ms - fwd_ms
+        bound_ms, bound_by, pairs, n_ops, n_bytes = attention_bwd_bound(
+            torch, b, h, kv, sq, sk, hd, causal, window, q.element_size())
+        log(f"kernel  {what} timed: device {ms:.6f} ms (CUDA graph of 5 "
+            f"calls; three CUDA kernels a call); per eager call "
+            f"{call_ms:.6f} ms; plain version (autograd of attention_ref) "
+            f"{plain_ms:.6f} ms; SDPA backward {lib_ms:.6f} ms (forward + "
+            f"backward {both_ms:.6f} minus forward {fwd_ms:.6f}, eager; its "
+            f"gradients within {lib_err} of the kernel's); "
+            f"bound {bound_ms:.6f} ms ({pairs} pairs a head, {n_ops} flops, "
+            f"{n_bytes} bytes; {bound_by}); {ms / bound_ms:.3f}x the bound, "
+            f"{ms / lib_ms:.3f}x SDPA's backward; {_peak(torch)}")
+        timed_numbers.append(dict(
+            shape=dict(B=b, H=h, KV=kv, S=sq, hd=hd, causal=causal,
+                       window=window, dtype=dt),
+            max_abs_err=max(errs), ms=ms, host_ms=call_ms,
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=lib_ms))
+        del q, k, v, o, do, grads, leaves, lib_grads, mask
+        torch.cuda.empty_cache()
+    main, windowed = timed_numbers
+    main["max_abs_err"] = max_err
+    main["windowed"] = windowed
+    return main
+
+
+def phase_wkv_bwd(torch, wkv6_bwd, wkv6_bwd_ref):
+    """K3's backward kernel against the plain version's autograd
+    (``WKV_BWD_CASES``), bit for bit on a rerun; the training shape timed
+    (a CUDA graph of calls, and an eager call) beside the plain version
+    and the bound.  Returns its numbers."""
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    torch.cuda.reset_peak_memory_stats()
+    max_err = 0.0
+    for b, h, t, n in WKV_BWD_CASES:
+        r, k, v, do = (torch.randn((b, h, t, n), generator=gen,
+                                   device="cuda") for _ in range(4))
+        w = torch.rand((b, h, t, n), generator=gen, device="cuda") * 0.5 \
+            + 0.45
+        u = torch.randn((h, n), generator=gen, device="cuda")
+        n0 = wkv6_bwd.launches
+        got = wkv6_bwd(r, k, v, w, u, do)
+        again = wkv6_bwd(r, k, v, w, u, do)
+        t0 = time.perf_counter()
+        want = wkv6_bwd_ref(r, k, v, w, u, do)
+        torch.cuda.synchronize()
+        ref_s = time.perf_counter() - t0
+        if wkv6_bwd.launches != n0 + 2:
+            raise AssertionError("wkv6_bwd did not count its launches")
+        what = f"wkv6_bwd B={b} H={h} T={t} N={n} f32"
+        errs = [_check_close(torch, g, x, WKV_BWD_TOL * max(
+            1.0, float(x.abs().max())), 0.0, f"{what} {name}")
+                for name, g, x in zip(("dr", "dk", "dv", "dw", "du"), got,
+                                      want)]
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise AssertionError(f"{what}: a rerun changed the bits")
+        max_err = max(max_err, *errs)
+        log(f"kernel  {what}: max abs error dr/dk/dv/dw/du "
+            + " ".join(f"{e:.3g}" for e in errs) + f" (within {WKV_BWD_TOL} "
+            "x max(1, max |g|); "
+            "max |g| " + " ".join(f"{float(x.abs().max()):.4g}"
+                                  for x in want)
+            + f"); a rerun gives the same bits; plain version {ref_s:.3f} s")
+        del got, again, want
+    grads = tuple(torch.empty_like(r) for _ in range(4))
+    kernel = lambda: wkv6_bwd(r, k, v, w, u, do, grads=grads)
+    ms = device_ms(torch, kernel, reps=10, samples=3)
+    call_ms = host_ms(torch, kernel, reps=10, samples=3)
+    plain_ms = ref_s * 1e3      # the last case's, the training shape's
+    # the work: r, k, v, w, dO in and dr, dk, dv, dw out once (and u, du);
+    # about 12·N² flops a token and head at the f32 FMA rate
+    n_bytes = 9 * b * h * t * n * 4 + 2 * h * n * 4
+    n_ops = 12 * n * n * b * h * t
+    bytes_ms, ops_ms = n_bytes / HBM_BYTES_S * 1e3, n_ops / SCALAR_OPS_S * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    log(f"kernel  wkv6_bwd B={b} H={h} T={t} N={n} f32 timed: device "
+        f"{ms:.6f} ms (CUDA graph of 10 calls; two CUDA kernels a call); "
+        f"per eager call {call_ms:.6f} ms; plain version (autograd of "
+        f"wkv6_ref) {plain_ms:.6f} ms, one call; bound {bound_ms:.6f} ms "
+        f"({n_bytes} bytes {bytes_ms:.6f} ms, {n_ops} flops at f32 peak "
+        f"{ops_ms:.6f} ms); {ms / bound_ms:.3f}x the bound; {_peak(torch)}")
+    return dict(max_abs_err=max_err, ms=ms, host_ms=call_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                library_ms=None)
+
+
 # lm-parity's reduced models; recurrentgemma with 5 layers (reduced it has
 # 2, so no super-block and no attention): one super-block, two tail blocks
 LM_PARITY = {"smollm-135m": {}, "granite-3-8b": {}, "rwkv6-1.6b": {},
@@ -2100,6 +2345,255 @@ def phase_lm_parity(torch, get_reduced, registry, kernels):
     log(f"lm-parity {_peak(torch)}")
 
 
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=4)
+
+
+def backward_launches(fa_bwd, wkv_bwd) -> dict:
+    return {"flash_attention_bwd": fa_bwd.launches,
+            "wkv6_bwd": wkv_bwd.launches}
+
+
+def phase_lm_parity_train(torch, get_reduced, registry, train, adamw,
+                          flat_params, fa_bwd, wkv_bwd):
+    """One ``make_train_step`` of a reduced f32 model of every family
+    (``LM_PARITY``) on the card (the backward kernels) and on the CPU (the
+    plain versions' autograd) from the same weights and batch: the loss,
+    the grad norm and every parameter after the AdamW update within 1e-4;
+    K2's backward launched in every family with attention, K3's in
+    rwkv6.  Returns the backward launches."""
+    torch.cuda.reset_peak_memory_stats()
+    opt = adamw.AdamWConfig(**TRAIN_OPT)
+    fa_bwd.launches = wkv_bwd.launches = 0
+    for name, over in LM_PARITY.items():
+        cfg = dataclasses.replace(get_reduced(name), **over)
+        cpu = registry.build(cfg, device="cpu")
+        gpu = registry.build(cfg, device="cuda")
+        model = cpu.init(torch.Generator().manual_seed(0))
+        model_gpu = copy.deepcopy(model).to("cuda")
+        batch = registry.make_batch(cfg, 2, 40,
+                                    torch.Generator().manual_seed(1), "cpu")
+        batch_gpu = {k: t.cuda() for k, t in batch.items()}
+        before = backward_launches(fa_bwd, wkv_bwd)
+        out = {}
+        for dev, api, m, bt in (("cuda", gpu, model_gpu, batch_gpu),
+                                ("cpu", cpu, model, batch)):
+            params = flat_params(api.param_tree(m))
+            _, st, metrics = train.make_train_step(api, opt)(
+                m, adamw.init(params), bt)
+            out[dev] = (metrics, params, st)
+        torch.cuda.synchronize()
+        launched = {k: v - before[k] for k, v in
+                    backward_launches(fa_bwd, wkv_bwd).items()}
+        want = "wkv6_bwd" if cfg.family == "ssm" else "flash_attention_bwd"
+        if not launched[want] or sum(launched.values()) != launched[want]:
+            raise AssertionError(f"lm-parity-train {name}: backward "
+                                 f"launches {launched}, expected "
+                                 f"{want} only")
+        (mg, pg, sg), (mc, pc, sc) = out["cuda"], out["cpu"]
+        errs = {k: _check_close(torch, mg[k].cpu(), mc[k], 1e-4, 1e-4,
+                                f"lm-parity-train {name} {k}")
+                for k in ("loss", "grad_norm", "lr")}
+        errs["params"] = max(
+            _check_close(torch, g.detach().cpu(), c.detach(), 1e-4, 1e-4,
+                         f"lm-parity-train {name} parameter {i}")
+            for i, (g, c) in enumerate(zip(pg, pc)))
+        errs["moments"] = max(
+            _check_close(torch, g.cpu(), c, 1e-4, 1e-4,
+                         f"lm-parity-train {name} moment")
+            for g, c in zip(sg.m + sg.v, sc.m + sc.v))
+        log(f"lm-parity-train {name} (reduced{', ' if over else ''}"
+            f"{', '.join(f'{k} {v}' for k, v in over.items())}, f32): one "
+            f"make_train_step on the card == the CPU's within 1e-4 (loss "
+            f"{float(mc['loss']):.6f}, grad norm "
+            f"{float(mc['grad_norm']):.6f}, {len(pc)} parameters and their "
+            f"moments after the update); max abs errors {errs}; backward "
+            f"launches {launched}")
+    log(f"lm-parity-train {_peak(torch)}")
+    return backward_launches(fa_bwd, wkv_bwd)
+
+
+# the training cells at full width: (tag, config, batch, seq, the backward
+# kernel of the path, its launches a step); seq 4096 is the LM cells'
+# train_4k reduction (launch/shapes.py:29); rwkv6 at 2048
+TRAIN_CELLS = [("smollm", "smollm-135m", 4, 4096, "flash_attention_bwd", 30),
+               ("rwkv6", "rwkv6-1.6b", 4, 2048, "wkv6_bwd", 24)]
+
+
+def same_bits(torch, a, b) -> bool:
+    a, b = torch.as_tensor(a), torch.as_tensor(b)
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    view = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+    if a.is_floating_point():
+        a, b = (x.view(view[x.element_size()]) for x in (a, b))
+    return torch.equal(a.to(b.device), b)
+
+
+def restored_equals_live(torch, api, model, opt_state, restored):
+    """Every leaf of a restored checkpoint equals the live weights,
+    moments and step bit for bit (a stacked leaf layer by layer); returns
+    the leaves compared."""
+    from repro_torch.checkpoint.manager import tree_flatten
+    from repro_torch.models.common import Layers, flat_params
+    tree = api.param_tree(model)
+    params = flat_params(tree)
+    leaves, _ = tree_flatten(tree)
+    params_r, st = restored
+    n = 0
+    for values, loaded in ((None, params_r), (opt_state.m, st.m),
+                           (opt_state.v, st.v)):
+        of = None if values is None else dict(zip(map(id, params), values))
+        for x, a in zip(leaves, tree_flatten(loaded)[0]):
+            parts = x.parts if isinstance(x, Layers) else [x]
+            for i, p in enumerate(parts):
+                live = (p if of is None else of[id(p)]).detach()
+                arr = a[i] if isinstance(x, Layers) else a
+                if not same_bits(torch, arr, live.cpu()):
+                    raise AssertionError("a restored checkpoint leaf "
+                                         "differs from the live state")
+            n += 1
+    if int(np.asarray(st.step)) != int(opt_state.step):
+        raise AssertionError("the restored step differs")
+    return n + 1
+
+
+def profile_train_step(torch, step_fn, model, opt_state, batch, tag: str):
+    """One train step under ``torch.profiler``: the device's busy time
+    against the host's wall clock, the top kernels by device time; returns
+    (model, opt_state, metrics, idle share)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model, opt_state, metrics = step_fn(model, opt_state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type != DeviceType.CPU]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    idle = 1 - busy_ms / wall_ms
+    log(f"{tag:<7} train step (profiled): wall {wall_ms:.3f} ms, device busy "
+        f"{busy_ms:.3f} ms, idle share {idle:.3f}; top kernels by device "
+        "time: " + "; ".join(
+            f"{e.key[:48]} {e.self_device_time_total / 1e3:.3f} ms "
+            f"({e.count}x)" for e in top))
+    return model, opt_state, metrics, idle
+
+
+def phase_train(torch, get, registry, train, adamw, data, fa, fa_bwd, wkv,
+                wkv_bwd, cell):
+    """A training cell at full width: ``launch/train.py::run`` for 4 steps
+    (1 warm, 3 timed) with a checkpoint at step 4 (bf16 weights, f32
+    moments, in the system temp directory, removed at the end); the
+    backward kernel's launches a step; tokens/s and the peak memory; the
+    restored checkpoint == the live state bit for bit; a fifth step,
+    profiled; then ``run`` resumed from the checkpoint, whose step must
+    give the fifth step's loss.  Returns the run's kernel launches by
+    kernel."""
+    import tempfile
+    from repro_torch.checkpoint import CheckpointManager
+    tag, name, b, s, bwd_name, per_step = cell
+    cfg = get(name)
+    api = registry.build(cfg)
+    opt = adamw.AdamWConfig(**TRAIN_OPT)
+    steps = TRAIN_OPT["total_steps"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(prefix=f"train_{tag}_") as ckdir:
+        tc = train.TrainConfig(steps=steps, log_every=1, ckpt_every=steps,
+                               keep=2, ckpt_dir=ckdir, opt=opt)
+        log(f"{tag:<7} {name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+            f"vocab {cfg.vocab}, {str(cfg.dtype)[6:]}; run() over {steps} "
+            f"steps at {b} x {s} tokens, AdamW {TRAIN_OPT}; checkpoint "
+            f"directory {ckdir}: "
+            f"{shutil.disk_usage(ckdir).free / 1e9:.1f} GB free on its disk")
+        reset_flash(fa)
+        fa_bwd.launches = wkv.launches = wkv_bwd.launches = 0
+        t0 = time.perf_counter()
+        out = train.run(api, tc, batch_size=b, seq=s, seed=0)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = {"flash_attention": fa.launches,
+                    "flash_attention_bwd": fa_bwd.launches,
+                    "wkv6": wkv.launches, "wkv6_bwd": wkv_bwd.launches}
+        fwd_name = bwd_name[:-4]
+        want = {k: (steps * per_step if k in (fwd_name, bwd_name) else 0)
+                for k in launches}
+        if launches != want:
+            raise AssertionError(f"{tag} train: kernel launches {launches}, "
+                                 f"expected {want}")
+        if fwd_name == "flash_attention":
+            expect_routes(fa, {"wgmma": steps * per_step, "fma": 0},
+                          f"{tag} train")
+        losses, secs = out["losses"], out["step_seconds"]
+        if len(losses) != steps or not all(map(math.isfinite, losses)):
+            raise AssertionError(f"{tag} train: losses {losses}")
+        timed_s = sum(secs[1:])
+        log(f"{tag:<7} train {steps} steps in {run_s:.3f} s (run(), the "
+            f"checkpoint's save included): steps "
+            + ", ".join(f"{x:.3f}" for x in secs) + f" s; "
+            f"{b * s * (steps - 1) / timed_s:.1f} tokens/s over the last "
+            f"{steps - 1}; losses " + ", ".join(f"{x:.6f}" for x in losses)
+            + f"; launches a step {fwd_name} {launches[fwd_name] // steps}, "
+            f"{bwd_name} {launches[bwd_name] // steps}; max_memory_allocated "
+            f"{peak}")
+        model, opt_state = out["params"], out["opt_state"]
+        del out
+        # the checkpoint at the last step == the live state, bit for bit
+        mgr = CheckpointManager(ckdir)
+        t0 = time.perf_counter()
+        restored = mgr.restore(train.checkpoint_template(api, model), steps)
+        restore_s = time.perf_counter() - t0
+        n_leaves = restored_equals_live(torch, api, model, opt_state,
+                                        restored)
+        ck_bytes = sum(os.path.getsize(os.path.join(ckdir,
+                                                    f"step_{steps:08d}", f))
+                       for f in os.listdir(os.path.join(
+                           ckdir, f"step_{steps:08d}")))
+        del restored
+        log(f"{tag:<7} checkpoint step {steps}: {ck_bytes} bytes, restored "
+            f"to the host in {restore_s:.3f} s; all {n_leaves} leaves "
+            "(bf16 weights, f32 moments, the step) equal the live state bit "
+            "for bit")
+        # the uninterrupted run's next step, profiled
+        batch = {k: torch.as_tensor(v).cuda() for k, v in next(
+            data.synthetic_batches(cfg, b, s, seed=0, skip=steps)).items()}
+        reset_flash(fa)
+        fa_bwd.launches = wkv.launches = wkv_bwd.launches = 0
+        model, opt_state, metrics, idle = profile_train_step(
+            torch, train.make_train_step(api, opt), model, opt_state, batch,
+            tag)
+        next_loss = float(metrics["loss"])
+        del model, opt_state, metrics, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        # resume from the checkpoint: run() restores it and takes step 5 on
+        # the same batch
+        out = train.run(api, dataclasses.replace(tc, steps=steps + 1),
+                        batch_size=b, seq=s, seed=0,
+                        data_iter=data.synthetic_batches(cfg, b, s, seed=0,
+                                                         skip=steps))
+        resumed = out["losses"]
+        del out
+        gc.collect()
+        torch.cuda.empty_cache()
+    if len(resumed) != 1:
+        raise AssertionError(f"{tag} resume: ran {len(resumed)} steps")
+    diff = abs(resumed[0] - next_loss)
+    log(f"{tag:<7} resumed from step {steps}: loss {resumed[0]!r}, the "
+        f"uninterrupted run's step {steps + 1} {next_loss!r}: "
+        + ("equal" if diff == 0 else
+           f"differ by {diff} (the restored state is bit for bit the "
+           "saved one, so the forward differs between the two processes' "
+           "runs)"))
+    return launches
+
+
 # --------------------------------------------------------------------------
 # the LM serving cells at full width
 # --------------------------------------------------------------------------
@@ -2146,6 +2640,12 @@ def expect_routes(flash_attention, want: dict, what: str) -> dict:
         raise AssertionError(f"{what}: flash_attention launches by route "
                              f"{routes}, expected {want}")
     return routes
+
+
+def eval_loss(torch, api, model, batch) -> float:
+    """``api.loss`` without the autograd graph (a serving cell's check)."""
+    with torch.inference_mode():
+        return float(api.loss(model, batch))
 
 
 def timed(torch, fn):
@@ -2345,7 +2845,7 @@ def phase_internvl(torch, get, registry, fa):
             or not bool(torch.isfinite(logits).all()):
         raise AssertionError(f"vlm forward: logits {tuple(logits.shape)}")
     del logits
-    loss, loss_s = timed(torch, lambda: float(api.loss(model, batch)))
+    loss, loss_s = timed(torch, lambda: eval_loss(torch, api, model, batch))
     if not math.isfinite(loss):
         raise AssertionError(f"vlm loss {loss}")
     log(f"vlm     forward {b} x ({p} patches + {s} tokens) in {fwd_s:.3f} s "
@@ -2373,7 +2873,7 @@ def phase_whisper(torch, get, registry, fa):
     t = batch["frames"].shape[1]
     n_enc = cfg.n_enc_layers
     reset_flash(fa)
-    loss, loss_s = timed(torch, lambda: float(api.loss(model, batch)))
+    loss, loss_s = timed(torch, lambda: eval_loss(torch, api, model, batch))
     loss_routes = expect_routes(fa, {"wgmma": n_enc + 2 * cfg.n_layers,
                                      "fma": 0}, "whisper loss")
     if not math.isfinite(loss):
@@ -2424,7 +2924,7 @@ def phase_griffin(torch, get, registry, fa, rglru):
     if not bool(torch.isfinite(logits).all()):
         raise AssertionError("griffin forward: non-finite logits")
     del logits
-    loss, loss_s = timed(torch, lambda: float(api.loss(model, batch)))
+    loss, loss_s = timed(torch, lambda: eval_loss(torch, api, model, batch))
     if not math.isfinite(loss):
         raise AssertionError(f"griffin loss {loss}")
     steps = 64
@@ -2513,7 +3013,7 @@ def phase_rwkv(torch, get, registry, wkv6):
     fwd_s = float(np.median(times))
     total = wkv6.launches
     t0 = time.perf_counter()
-    loss = float(api.loss(model, batch))
+    loss = eval_loss(torch, api, model, batch)
     loss_s = time.perf_counter() - t0
     if launches != cfg.n_layers or total != 3 * cfg.n_layers \
             or not bool(torch.isfinite(logits).all()) \
@@ -2567,18 +3067,23 @@ def main(argv=None) -> int:
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.configs import get, get_reduced
     from repro_torch.kernels import build
-    from repro_torch.kernels.flash_attention.kernel import (_route,
-                                                            flash_attention)
-    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.data import tokens as data
+    from repro_torch.kernels.flash_attention.kernel import (
+        _route, flash_attention, flash_attention_bwd)
+    from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                         attention_ref)
     from repro_torch.kernels.leaf_search.kernel import (leaf_search,
                                                         leaf_search_pool)
     from repro_torch.kernels.leaf_search.ops import lookup_leaves
     from repro_torch.kernels.leaf_search.ref import (leaf_search_pool_ref,
                                                      leaf_search_ref)
-    from repro_torch.kernels.rwkv_scan.kernel import wkv6
+    from repro_torch.kernels.rwkv_scan.kernel import wkv6, wkv6_bwd
     from repro_torch.kernels.rwkv_scan.ops import wkv6_seq
-    from repro_torch.kernels.rwkv_scan.ref import wkv6_ref
+    from repro_torch.kernels.rwkv_scan.ref import wkv6_bwd_ref, wkv6_ref
+    from repro_torch.launch import train
     from repro_torch.models import moe, registry, rglru
+    from repro_torch.models.common import flat_params
+    from repro_torch.optim import adamw
     from repro_torch.workloads import engine, get_preset
 
     # every float32 matmul in full float32 (the GPU-vs-CPU comparisons)
@@ -2592,7 +3097,8 @@ def main(argv=None) -> int:
     log(line)
 
     # 2. build, one nvcc per source, all started together
-    names = ("leaf_search", "flash_attention", "wkv6")
+    names = ("leaf_search", "flash_attention", "wkv6", "flash_attention_bwd",
+             "wkv6_bwd")
     t0 = time.perf_counter()
     libs = dict(zip(names, build.build_all(names)))
     log(f"build   {', '.join(n + '.cu' for n in names)} in "
@@ -2609,6 +3115,10 @@ def main(argv=None) -> int:
                "wkv6": phase_wkv(torch, wkv6, wkv6_ref, wkv6_seq)}
     numbers["flash_attention"]["windowed"] = phase_flash_window(
         torch, flash_attention, attention_ref, _route)
+    torch.cuda.empty_cache()
+    numbers["flash_attention_bwd"] = phase_flash_bwd(
+        torch, flash_attention, flash_attention_bwd, attention_bwd_ref)
+    numbers["wkv6_bwd"] = phase_wkv_bwd(torch, wkv6_bwd, wkv6_bwd_ref)
     torch.cuda.empty_cache()
 
     # 4. the GPU run agrees with the CPU run
@@ -2660,10 +3170,40 @@ def main(argv=None) -> int:
                                  *args))
     launches["flash_attention"] = sum(flash_paths["granite_prefill"].values())
 
+    # 13.-15. the training path: reduced models card == CPU, then the two
+    # full-width training cells
+    gc.collect()
+    torch.cuda.empty_cache()
+    parity_bwd = phase_lm_parity_train(torch, get_reduced, registry, train,
+                                       adamw, flat_params,
+                                       flash_attention_bwd, wkv6_bwd)
+    bwd_paths = {"flash_attention_bwd": {}, "wkv6_bwd": {}}
+    wkv_paths = {"rwkv_forward": launches["wkv6"]}
+    for cell in TRAIN_CELLS:
+        tag, bwd_name = cell[0], cell[4]
+        run_launches = phase_train(
+            torch, get, registry, train, adamw, data, flash_attention,
+            flash_attention_bwd, wkv6, wkv6_bwd, cell)
+        path = f"{tag}_train"
+        bwd_paths[bwd_name][path] = launches[bwd_name] = \
+            run_launches[bwd_name]
+        if bwd_name == "flash_attention_bwd":
+            flash_paths[path] = {"wgmma": run_launches["flash_attention"],
+                                 "fma": 0}
+        else:
+            wkv_paths[path] = run_launches["wkv6"]
+    for bwd_name, paths in bwd_paths.items():
+        paths["lm_parity_train"] = parity_bwd[bwd_name]
+
     replaces = {
         "leaf_search": "src/repro/kernels/leaf_search/kernel.py:48",
         "flash_attention": "src/repro/kernels/flash_attention/kernel.py:74",
-        "wkv6": "src/repro/kernels/rwkv_scan/kernel.py:46"}
+        "wkv6": "src/repro/kernels/rwkv_scan/kernel.py:46",
+        # the backward kernels stand beside the forwards' TPU kernels,
+        # which have no backward
+        "flash_attention_bwd":
+            "src/repro/kernels/flash_attention/kernel.py:74",
+        "wkv6_bwd": "src/repro/kernels/rwkv_scan/kernel.py:46"}
     kernels = [dict({"library_ms": None}, name=name, route="cuda",
                     source=f"src/repro_torch/csrc/{name}.cu",
                     replaces=replaces[name], launches=launches[name],
@@ -2675,6 +3215,9 @@ def main(argv=None) -> int:
     kernels[1]["launches_by_route"] = {
         route: sum(r[route] for r in flash_paths.values())
         for route in ("wgmma", "fma")}
+    kernels[2]["launches_by_path"] = wkv_paths
+    kernels[3]["launches_by_path"] = bwd_paths["flash_attention_bwd"]
+    kernels[4]["launches_by_path"] = bwd_paths["wkv6_bwd"]
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

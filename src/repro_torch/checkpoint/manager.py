@@ -17,6 +17,16 @@ tree's ``fence_hi`` and ``fence_lo`` would swap with no dtype or shape
 check to catch it.  A ``torch.Tensor`` leaf is saved from a host copy,
 whatever device it lives on; restored leaves are numpy arrays, and a
 caller that wants tensors moves them onto the device it names.
+
+A bfloat16 leaf (a tensor, or an ml_dtypes array) is written as the
+reference writes one: its raw 2-byte values under the ``.npy`` descr
+``<V2`` and the manifest dtype ``bfloat16``, so the files are the same
+bytes.  numpy has no bfloat16 without ml_dtypes, so such a leaf restores
+as a CPU ``torch.bfloat16`` tensor, after the same manifest checks: a
+file whose dtype is not 2-byte void, or whose shape differs, is refused.
+(The reference itself refuses to restore such a leaf: ``np.load`` reads
+``<V2`` back as ``|V2``, which its dtype check compares with
+``bfloat16``.)
 """
 from __future__ import annotations
 
@@ -30,6 +40,7 @@ import torch
 
 _MANIFEST = "manifest.json"
 _EXTRA = "extra.json"
+_BF16 = "bfloat16"
 
 
 def _is_namedtuple(x) -> bool:
@@ -72,17 +83,42 @@ def _flatten_with_names(tree: Any):
 def _host_array(leaf) -> np.ndarray:
     """One leaf on the host: a tensor (on any device) as a C-ordered numpy
     copy, as the reference writes a JAX array; anything else as
-    ``np.asarray`` gives it."""
+    ``np.asarray`` gives it.  A bfloat16 leaf comes back as its uint16
+    bit patterns (see :func:`_save_leaf`)."""
     if isinstance(leaf, torch.Tensor):
         if leaf.dtype == torch.bfloat16:
-            raise ValueError(
-                "checkpoint: a bfloat16 tensor has no numpy dtype without "
-                "ml_dtypes; bfloat16 leaves come with the LM scaffold "
-                "(ROADMAP item 14)")
+            leaf = leaf.detach().view(torch.int16)
+            return _host_array(leaf).view(np.uint16)
         arr = leaf.detach().cpu().numpy()
         # (np.ascontiguousarray would make a 0-d leaf 1-d)
         return arr if arr.flags.c_contiguous else arr.copy(order="C")
-    return np.asarray(leaf)
+    arr = np.asarray(leaf)
+    if arr.dtype.name == _BF16:                 # an ml_dtypes array
+        return np.ascontiguousarray(arr).view(np.uint16)
+    return arr
+
+
+def _is_bf16(leaf) -> bool:
+    if isinstance(leaf, torch.Tensor):
+        return leaf.dtype == torch.bfloat16
+    return getattr(getattr(leaf, "dtype", None), "name", None) == _BF16
+
+
+def _save_leaf(path: str, leaf) -> dict:
+    """Write one leaf's ``.npy``; return its manifest entry.  A bfloat16
+    leaf gets the reference's bytes: a version 1.0 header with descr
+    ``<V2`` (what ``np.save`` writes for an ml_dtypes bfloat16 array)
+    over its raw values."""
+    arr = _host_array(leaf)
+    if not _is_bf16(leaf):
+        np.save(path, arr)
+        return {"dtype": str(arr.dtype), "shape": list(arr.shape)}
+    with open(path, "wb") as f:
+        np.lib.format.write_array_header_1_0(
+            f, {"descr": "<V2", "fortran_order": False,
+                "shape": tuple(arr.shape)})
+        f.write(arr.tobytes())
+    return {"dtype": _BF16, "shape": list(arr.shape)}
 
 
 def _leaf_shape(leaf) -> tuple:
@@ -111,11 +147,9 @@ class CheckpointManager:
         os.makedirs(tmp)
         manifest = {"step": step, "leaves": {}}
         for name, leaf in zip(names, leaves):
-            arr = _host_array(leaf)
-            np.save(os.path.join(tmp, name + ".npy"), arr)
-            manifest["leaves"][name] = {"dtype": str(arr.dtype),
-                                        "shape": list(arr.shape)}
-            del arr                      # one leaf on the host at a time
+            # one leaf on the host at a time
+            manifest["leaves"][name] = _save_leaf(
+                os.path.join(tmp, name + ".npy"), leaf)
         with open(os.path.join(tmp, _MANIFEST), "w") as f:
             json.dump(manifest, f)
         if extra is not None:
@@ -141,12 +175,14 @@ class CheckpointManager:
         with open(path) as f:
             return json.load(f)
 
-    def _load_leaf(self, step: int, name: str, entry: dict) -> np.ndarray:
+    def _load_leaf(self, step: int, name: str, entry: dict):
         """Load one ``.npy`` and validate it against its manifest entry.
 
         The manifest is the ground truth written at save time; a leaf
         whose on-disk dtype/shape disagrees (truncated write, stale file
-        from an older run, bit-rot) must never be accepted silently.
+        from an older run, bit-rot) must never be accepted silently.  A
+        ``bfloat16`` entry needs a 2-byte void file and restores as a CPU
+        ``torch.bfloat16`` tensor.
         """
         path = os.path.join(self.dir, f"step_{step:08d}", name + ".npy")
         try:
@@ -155,7 +191,12 @@ class CheckpointManager:
             raise ValueError(
                 f"checkpoint leaf {name} at step {step} is unreadable "
                 f"({e})") from e
-        if str(arr.dtype) != entry["dtype"]:
+        bf16 = entry["dtype"] == _BF16
+        if bf16:
+            ok = arr.dtype.kind == "V" and arr.dtype.itemsize == 2
+        else:
+            ok = str(arr.dtype) == entry["dtype"]
+        if not ok:
             raise ValueError(
                 f"checkpoint leaf {name} dtype {arr.dtype} != manifest "
                 f"{entry['dtype']} (stale or corrupt leaf)")
@@ -163,11 +204,14 @@ class CheckpointManager:
             raise ValueError(
                 f"checkpoint leaf {name} shape {list(arr.shape)} != "
                 f"manifest {entry['shape']} (stale or corrupt leaf)")
+        if bf16:
+            return torch.from_numpy(
+                np.ascontiguousarray(arr).view(np.int16)).view(torch.bfloat16)
         return arr
 
     def restore(self, template: Any, step: int):
         """The tree saved at ``step``, in ``template``'s structure, with
-        numpy leaves."""
+        numpy leaves (bfloat16 ones as CPU tensors)."""
         manifest = self._manifest(step)
         names, leaves, rebuild = _flatten_with_names(template)
         if set(names) != set(manifest["leaves"]):

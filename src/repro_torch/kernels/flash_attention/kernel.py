@@ -56,6 +56,16 @@ For a CPU tensor the wrapper runs the plain version
 tensor it launches the route's kernel or raises: no route is taken on
 failure.  ``flash_attention.launches`` counts kernel launches,
 ``launches_wgmma`` and ``launches_fma`` each route's.
+
+:func:`flash_attention_bwd` is the gradient, dQ, dK and dV
+(``csrc/flash_attention_bwd.cu``; the TPU kernel has no backward, and the
+reference differentiates its jnp attention): a row pass recomputes each
+query row's softmax max and sum and D = dO·o into f32 scratch, then one
+kernel sums dK and dV a key tile at a time over the group's query heads,
+and one sums dQ a query tile at a time, on the f32 FMA units.
+``flash_attention_bwd.launches`` counts its calls (three CUDA kernels
+each).  For a CPU tensor it runs the plain version
+(:func:`repro_torch.kernels.flash_attention.ref.attention_bwd_ref`).
 """
 from __future__ import annotations
 
@@ -64,7 +74,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build, check_tma
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                      attention_ref)
 
 #: Head dims the wrapper takes (f32 runs each on the ``fma`` route).
 HEAD_DIMS = (16, 32, 64, 128, 256)
@@ -76,6 +87,9 @@ _ROUTES = {"fma": 0, "wgmma": 1}
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
              + [ctypes.c_int64] * 12
              + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+                 + [ctypes.c_void_p, ctypes.c_float] + [ctypes.c_int] * 3
+                 + [ctypes.c_void_p])
 
 
 def _route(dtype: torch.dtype, hd: int, window: int = 0) -> str:
@@ -93,6 +107,15 @@ def _lib() -> ctypes.CDLL:
     fn = lib.flash_attention_launch
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _bwd_lib() -> ctypes.CDLL:
+    lib = build.load("flash_attention_bwd")
+    fn = lib.flash_attention_bwd_launch
+    if fn.argtypes is None:
+        fn.argtypes = _BWD_ARGTYPES
         fn.restype = ctypes.c_int
     return lib
 
@@ -180,3 +203,56 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 flash_attention.launches = 0
 flash_attention.launches_wgmma = 0
 flash_attention.launches_fma = 0
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor, *,
+                        causal: bool = True, window: int = 0,
+                        grads: tuple | None = None) -> tuple:
+    """The gradient of :func:`flash_attention`: q, o, do [B, H, Sq, hd];
+    k, v [B, KV, Sk, hd]; o the forward's output and do its gradient ->
+    (dq, dk, dv) in q's dtype, written into ``grads`` (three tensors of
+    q's, k's and v's shapes) when given.  Any strides with the head dim
+    contiguous."""
+    _check(q, k, v, o, window)
+    _check(q, k, v, do, window)
+    dev = q.device
+    if dev.type == "cpu":
+        got = attention_bwd_ref(q, k, v, do, causal=causal, window=window)
+        if grads is None:
+            return got
+        return tuple(g.copy_(x) for g, x in zip(grads, got))
+    if dev.type != "cuda":
+        raise ValueError(f"flash_attention_bwd runs on cpu or cuda, not {dev}")
+    if grads is None:
+        grads = tuple(torch.empty(t.shape, dtype=q.dtype, device=dev)
+                      for t in (q, k, v))
+    for name, g, t in zip(("dq", "dk", "dv"), grads, (q, k, v)):
+        if g.shape != t.shape or g.dtype != q.dtype or g.device != dev:
+            raise ValueError(f"{name} must be {q.dtype} {tuple(t.shape)} on "
+                             f"{dev}")
+        if g.stride(3) != 1:
+            raise ValueError(f"{name}'s head dim must be contiguous")
+    b, h, sq, hd = q.shape
+    _, kvh, sk, _ = k.shape
+    if q.numel() == 0 or k.numel() == 0:
+        for g in grads:
+            g.zero_()
+        return grads
+    stats = torch.empty((3, b, h, sq), dtype=torch.float32, device=dev)
+    strides = (ctypes.c_int64 * 24)(*[
+        st for t in (q, k, v, o, do, *grads) for st in _strides(t)])
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = _bwd_lib().flash_attention_bwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), *(g.data_ptr() for g in grads), stats.data_ptr(),
+        b, h, kvh, sq, sk, hd, strides, hd ** -0.5, int(causal), window,
+        _DTYPES[q.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_bwd launch failed: CUDA error "
+                           f"{rc}")
+    flash_attention_bwd.launches += 1
+    return grads
+
+
+flash_attention_bwd.launches = 0

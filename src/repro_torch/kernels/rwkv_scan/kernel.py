@@ -28,6 +28,18 @@ ctypes.
 For a CPU tensor the wrapper runs the plain version
 (:func:`repro_torch.kernels.rwkv_scan.ref.wkv6_ref`); for a CUDA tensor it
 launches the kernel or raises.  ``wkv6.launches`` counts kernel launches.
+
+:func:`wkv6_bwd` is the gradient, dr, dk, dv, dw and du, in f32
+(``csrc/wkv6_bwd.cu``; the TPU kernel has no backward, and the reference
+differentiates its ``lax.scan``): a block owns 16 rows of a (b, h)'s
+state, a forward sweep stores the state every :data:`BWD_CHUNK` steps in
+f32 checkpoints, and a backward sweep recomputes each chunk's states from
+its checkpoint and runs the chunk's steps backwards; dv's row blocks and
+du's batch entries are summed in a fixed order.  It takes f32 only (what
+``models/rwkv6.py`` passes) and raises on anything else.
+``wkv6_bwd.launches`` counts its calls (two CUDA kernels each).  For a
+CPU tensor it runs the plain version
+(:func:`repro_torch.kernels.rwkv_scan.ref.wkv6_bwd_ref`).
 """
 from __future__ import annotations
 
@@ -36,7 +48,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build, check_tma
-from repro_torch.kernels.rwkv_scan.ref import wkv6_ref
+from repro_torch.kernels.rwkv_scan.ref import wkv6_bwd_ref, wkv6_ref
 
 #: State widths the kernel is compiled for.
 HEAD_SIZES = (16, 32, 64)
@@ -46,6 +58,11 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
              + [ctypes.c_int64] * 6 + [ctypes.c_int, ctypes.c_void_p])
+#: Time steps between the backward's state checkpoints (``kChunk`` in
+#: ``csrc/wkv6_bwd.cu``).
+BWD_CHUNK = 16
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 4
+                 + [ctypes.c_void_p] * 2)
 
 
 def _lib() -> ctypes.CDLL:
@@ -53,6 +70,15 @@ def _lib() -> ctypes.CDLL:
     fn = lib.wkv6_launch
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _bwd_lib() -> ctypes.CDLL:
+    lib = build.load("wkv6_bwd")
+    fn = lib.wkv6_bwd_launch
+    if fn.argtypes is None:
+        fn.argtypes = _BWD_ARGTYPES
         fn.restype = ctypes.c_int
     return lib
 
@@ -122,3 +148,58 @@ def wkv6(r, k, v, w, u, *, out: torch.Tensor | None = None) -> torch.Tensor:
 
 
 wkv6.launches = 0
+
+
+def wkv6_bwd(r, k, v, w, u, do, *, grads: tuple | None = None) -> tuple:
+    """The gradient of :func:`wkv6`: r/k/v/w [B, H, T, N] (shared strides,
+    N contiguous), u [H, N], do [B, H, T, N] the output's gradient ->
+    (dr, dk, dv, dw, du) in f32, dr..dw written into ``grads`` (four
+    [B, H, T, N] f32 tensors, N contiguous) when given."""
+    _check(r, k, v, w, u, do)
+    dev = r.device
+    if dev.type == "cpu":
+        got = wkv6_bwd_ref(r, k, v, w, u, do)
+        if grads is None:
+            return got
+        return (*(g.copy_(x) for g, x in zip(grads, got)), got[4])
+    if dev.type != "cuda":
+        raise ValueError(f"wkv6_bwd runs on cpu or cuda, not {dev}")
+    if r.dtype != torch.float32:
+        raise TypeError(f"wkv6_bwd takes float32 inputs, not {r.dtype}")
+    b, h, t, n = r.shape
+    if grads is None:
+        grads = tuple(torch.empty(r.shape, dtype=torch.float32, device=dev)
+                      for _ in range(4))
+    for name, g in zip(("dr", "dk", "dv", "dw"), grads):
+        if g.shape != r.shape or g.dtype != torch.float32 or g.device != dev:
+            raise ValueError(f"{name} must be float32 {tuple(r.shape)} on "
+                             f"{dev}")
+        if g.stride(-1) != 1:
+            raise ValueError(f"{name}'s last dim must be contiguous")
+    du_part = torch.empty((b, h, n), dtype=torch.float32, device=dev)
+    if r.numel() == 0:
+        for g in grads:
+            g.zero_()
+        return (*grads, du_part.sum(0) if b else u.new_zeros(u.shape))
+    n_ck = -(-t // BWD_CHUNK)
+    dv_part = torch.empty((n // 16, b, h, t, n), dtype=torch.float32,
+                          device=dev)
+    ckpt = torch.empty((b, h, n_ck, n, n), dtype=torch.float32, device=dev)
+    strides = (ctypes.c_int64 * 18)(*[
+        st for x in (r, do, *grads) for st in _strides(x)])
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = _bwd_lib().wkv6_bwd_launch(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
+        do.data_ptr(), *(g.data_ptr() for g in grads), du_part.data_ptr(),
+        dv_part.data_ptr(), ckpt.data_ptr(), b, h, t, n, strides, stream)
+    if rc != 0:
+        raise RuntimeError(f"wkv6_bwd launch failed: CUDA error {rc}")
+    wkv6_bwd.launches += 1
+    # du: the batch's partials summed in order
+    du = du_part[0].clone()
+    for i in range(1, b):
+        du += du_part[i]
+    return (*grads, du)
+
+
+wkv6_bwd.launches = 0

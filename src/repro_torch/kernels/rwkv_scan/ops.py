@@ -1,20 +1,58 @@
 """Model-layout wrapper for the WKV6 kernel: the recurrence that
-:func:`repro.models.rwkv6._time_mix_seq` scans over time.
+:func:`repro.models.rwkv6._time_mix_seq` scans over time, with its
+gradient.
 
 The kernel takes strides, so the [B,T,H,N] tensors are passed as
 transposed views and the output is written in the model layout: no copy
-on either side.
+on either side.  When a gradient is wanted, :class:`WKV6` runs the same
+forward launch and, for the backward,
+:func:`~repro_torch.kernels.rwkv_scan.kernel.wkv6_bwd` (the backward
+kernel on a CUDA tensor, the plain version's autograd on a CPU tensor);
+without one (the serving paths) no autograd node is made.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.rwkv_scan.kernel import wkv6
+from repro_torch.kernels.rwkv_scan.kernel import wkv6, wkv6_bwd
+
+
+def _time_second(*xs):
+    """[B,T,H,N] views as [B,H,T,N]."""
+    return tuple(x.transpose(1, 2) for x in xs)
+
+
+def _forward(r, k, v, w, u) -> torch.Tensor:
+    out = torch.empty(r.shape, dtype=torch.float32, device=r.device)
+    wkv6(*_time_second(r, k, v, w), u, out=out.transpose(1, 2))
+    return out
+
+
+class WKV6(torch.autograd.Function):
+    """o = wkv6(r, k, v, w, u) in the model layout; the backward is K3's
+    backward kernel (f32 gradients, cast to each input's dtype)."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u):
+        ctx.save_for_backward(r, k, v, w, u)
+        return _forward(r, k, v, w, u)
+
+    @staticmethod
+    def backward(ctx, do):
+        r, k, v, w, u = ctx.saved_tensors
+        if do.stride(-1) != 1:
+            do = do.contiguous()
+        grads = tuple(torch.empty(r.shape, dtype=torch.float32,
+                                  device=r.device) for _ in range(4))
+        *_, du = wkv6_bwd(*_time_second(r, k, v, w), u,
+                          do.transpose(1, 2), grads=_time_second(*grads))
+        return tuple(g.to(x.dtype) for g, x in zip((*grads, du),
+                                                    (r, k, v, w, u)))
 
 
 def wkv6_seq(r, k, v, w, u) -> torch.Tensor:
     """r/k/v/w: [B,T,H,N] (model layout); u: [H,N] -> [B,T,H,N] f32."""
-    out = torch.empty(r.shape, dtype=torch.float32, device=r.device)
-    wkv6(*(x.transpose(1, 2) for x in (r, k, v, w)), u,
-         out=out.transpose(1, 2))
-    return out
+    if torch.is_grad_enabled() and any(x.requires_grad
+                                       for x in (r, k, v, w, u)):
+        return WKV6.apply(r, k, v, w, u)
+    return _forward(r, k, v, w, u)

@@ -1,8 +1,8 @@
-"""Plain-torch version of the WKV6 kernel (mirrors
-:mod:`repro.kernels.rwkv_scan.ref`: a loop over time).
+"""Plain-torch versions of the WKV6 kernel (mirrors
+:mod:`repro.kernels.rwkv_scan.ref`: a loop over time) and of its gradient.
 
-The CPU path runs it in place of the CUDA kernel, and ``chip_smoke.py``
-holds the kernel against it on the card.
+The CPU path runs them in place of the CUDA kernels, and ``chip_smoke.py``
+holds the kernels against them on the card.
 """
 from __future__ import annotations
 
@@ -23,3 +23,15 @@ def wkv6_ref(r, k, v, w, u):
                         * rt[..., :, None]).sum(-2)
         s = wt[..., :, None] * s + kv
     return out
+
+
+def wkv6_bwd_ref(r, k, v, w, u, do):
+    """The gradient of :func:`wkv6_ref` by autograd: (dr, dk, dv, dw, du)
+    of ``<wkv6_ref(r, k, v, w, u), do>``, in f32 (the last step's w
+    reaches no output: its gradient is zero)."""
+    with torch.enable_grad():
+        leaves = [x.detach().float().requires_grad_(True)
+                  for x in (r, k, v, w, u)]
+        out = wkv6_ref(*leaves)
+        return torch.autograd.grad(out, leaves, do.float(),
+                                   allow_unused=True, materialize_grads=True)

@@ -1,9 +1,10 @@
 """Launch helpers of the PyTorch port.
 
-Only the host mesh is ported so far (:mod:`repro_torch.launch.mesh`): a
-``(data, model)`` grid of ``torch.distributed`` ranks, and the launcher
-that starts them.  The reference's production mesh, ``train``, ``dryrun``,
-``shapes`` and ``elastic`` come with the LM scaffold.
+The host mesh (:mod:`repro_torch.launch.mesh`): a ``(data, model)`` grid
+of ``torch.distributed`` ranks, and the launcher that starts them; and
+the training launcher on one device (:mod:`repro_torch.launch.train`,
+imported by name).  The reference's production mesh, sharded train step,
+``dryrun``, ``shapes`` and ``elastic`` are ROADMAP items 14e–14g.
 """
 from repro_torch.launch.mesh import (Mesh, MeshRanks, make_host_mesh,
                                      run_mesh, start_mesh)

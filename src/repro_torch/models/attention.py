@@ -5,8 +5,9 @@ prefill, forward, encoder and cross attention) and decode.  The port of
 Shapes follow the [batch, seq, heads, head_dim] convention.
 :func:`_sdpa_train` is the flash-attention kernel
 (:func:`repro_torch.kernels.flash_attention.ops.flash_sdpa`): on a CUDA
-tensor it launches a hand-written CUDA kernel, on a CPU tensor it runs
-the kernel's plain version.  The plain version and the f32 (FMA) kernel
+tensor it launches a hand-written CUDA kernel (and, when a gradient is
+wanted, its hand-written backward kernel), on a CPU tensor it runs the
+kernel's plain version.  The plain version and the f32 (FMA) kernel
 keep the softmax probabilities in f32 through the P·V product, like the
 reference's kernel and its chunked jnp twin; in bf16 at head dims 64 and
 128 the card's tensor-core (``wgmma``) kernel rounds them to bf16 for the
@@ -16,6 +17,7 @@ computes it outside any kernel.
 """
 from __future__ import annotations
 
+from collections import namedtuple
 from typing import NamedTuple, Optional
 
 import torch
@@ -26,6 +28,9 @@ from repro_torch.models.common import (ArchConfig, apply_rope, dense_init,
                                        param)
 
 NEG_INF = -1e30
+
+#: The reference's ``AttnParams`` node.
+AttnTree = namedtuple("AttnParams", "wq wk wv wo")
 
 
 class AttnParams(nn.Module):

@@ -3,15 +3,24 @@
 The port of :mod:`repro.models.common`.  Functions take tensors on an
 explicit device and compute where their inputs lie; random init draws from
 a ``torch.Generator`` that the caller passes.
+
+The port keeps one module per layer where the reference stacks a leading
+``L`` axis, so each model module also gives its weights in the
+reference's tree (:class:`Layers` leaves, one per stacked reference leaf):
+the optimizer walks them in the reference's leaf order
+(:func:`flat_params`), and :func:`tree_to_host` stacks them for a gradient
+check or a checkpoint.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
+
+from repro_torch.checkpoint.manager import tree_flatten
 
 
 @dataclasses.dataclass(frozen=True)
@@ -171,15 +180,114 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 
 def param(t: torch.Tensor) -> torch.nn.Parameter:
-    """A model weight: the serving paths need no gradient."""
-    return torch.nn.Parameter(t, requires_grad=False)
+    """A model weight, trainable: ``loss`` takes its gradient, while the
+    serving paths run under ``torch.inference_mode()`` and record none."""
+    return torch.nn.Parameter(t, requires_grad=True)
 
 
 def tensor_from_numpy(a, device) -> torch.Tensor:
-    """A numpy array (ml_dtypes bfloat16 included) as a tensor of the same
-    dtype and values on ``device``."""
+    """A numpy array (ml_dtypes bfloat16 included), or a host tensor, as a
+    tensor of the same dtype and values on ``device``."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().to(device, copy=True)
     a = np.array(a)                 # a writable, contiguous copy
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.uint16)).view(
             torch.bfloat16).to(device)
     return torch.from_numpy(a).to(device)
+
+
+# --------------------------------------------------------------------------
+# the reference's parameter tree
+# --------------------------------------------------------------------------
+
+class Layers:
+    """One leaf of the reference's tree stacked on a leading ``L`` axis:
+    the port's per-layer tensors, in layer order.  ``like`` (a tensor, a
+    ``meta`` one will do) gives a part's shape and dtype when there are no
+    parts, as for a Griffin config without super-blocks."""
+
+    def __init__(self, parts, like: Optional[torch.Tensor] = None):
+        self.parts = list(parts)
+        self.like = self.parts[0] if self.parts else like
+
+    @property
+    def shape(self) -> tuple:
+        return (len(self.parts),) + tuple(self.like.shape)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.like.dtype
+
+
+def stack_fields(cls, mods, like=None):
+    """``cls`` (a NamedTuple of a reference node's fields, in its order)
+    whose every field is a
+    :class:`Layers` of that tensor attribute over the modules ``mods``
+    (``like``, a module of the same fields, stands in for a part when
+    ``mods`` is empty); None where the attribute is None."""
+    mods = list(mods)
+    like = mods[0] if mods else like
+    return cls(*(None if getattr(like, f) is None else
+                 Layers([getattr(m, f) for m in mods], getattr(like, f))
+                 for f in cls._fields))
+
+
+def tree_map(fn: Callable, tree):
+    """``tree`` with ``fn`` applied to each leaf (a tensor or a
+    :class:`Layers`), in the reference's structure."""
+    leaves, rebuild = tree_flatten(tree)
+    return rebuild(iter([fn(x) for x in leaves]))
+
+
+def flat_params(tree) -> list:
+    """Every tensor of the tree in the reference's leaf order, a stacked
+    leaf's layers in layer order."""
+    leaves, _ = tree_flatten(tree)
+    return [p for x in leaves
+            for p in (x.parts if isinstance(x, Layers) else [x])]
+
+
+def _to_host(t: torch.Tensor):
+    """numpy, except bfloat16 (which numpy has no dtype for without
+    ml_dtypes): a CPU tensor."""
+    t = t.detach().cpu()
+    return t if t.dtype == torch.bfloat16 else t.numpy()
+
+
+def tree_to_host(tree, value: Callable = lambda p: p, dtype=None):
+    """The reference's tree with each leaf stacked on the host: ``value(p)``
+    of each part (a parameter, or its gradient, or its optimizer moment),
+    as numpy (a bfloat16 leaf as a CPU tensor).  ``dtype`` is that of an
+    empty stack's values (the parameters' when None)."""
+    def leaf(x):
+        if not isinstance(x, Layers):
+            return _to_host(value(x))
+        if not x.parts:
+            return _to_host(torch.zeros(x.shape, dtype=dtype or x.dtype))
+        return _to_host(torch.stack([value(p).detach().cpu()
+                                     for p in x.parts]))
+    return tree_map(leaf, tree)
+
+
+@torch.no_grad()
+def tree_from_host(tree, loaded, value: Callable = lambda p: p) -> None:
+    """Copy ``loaded`` (the reference's tree on the host, as
+    :func:`tree_to_host` gives it or a checkpoint restores it) into
+    ``value(p)`` of each part of ``tree``, layer by layer."""
+    leaves, _ = tree_flatten(tree)
+    arrays, _ = tree_flatten(loaded)
+    if len(arrays) != len(leaves):
+        raise ValueError(f"{len(arrays)} leaves for a tree of "
+                         f"{len(leaves)}")
+    for x, a in zip(leaves, arrays):
+        a = a if isinstance(a, torch.Tensor) else torch.from_numpy(
+            np.asarray(a))
+        if tuple(a.shape) != tuple(x.shape):
+            raise ValueError(f"leaf of shape {tuple(a.shape)} for "
+                             f"{tuple(x.shape)}")
+        if isinstance(x, Layers):
+            for i, p in enumerate(x.parts):
+                value(p).copy_(a[i])
+        else:
+            value(x).copy_(a)

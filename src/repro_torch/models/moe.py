@@ -18,6 +18,8 @@ places where PyTorch's defaults differ from JAX's:
 """
 from __future__ import annotations
 
+from collections import namedtuple
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -29,6 +31,8 @@ from repro_torch.models.common import ArchConfig, dense_init, param
 #: shared_down [Fs, D], or None without shared experts.
 FIELDS = ("router", "w_gate", "w_up", "w_down", "shared_gate", "shared_up",
           "shared_down")
+#: The reference's ``MoEParams`` node.
+MoETree = namedtuple("MoEParams", FIELDS)
 
 
 class MoEParams(nn.Module):

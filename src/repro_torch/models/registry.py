@@ -10,6 +10,12 @@ on ``device`` (the card unless the caller asks for the CPU):
 * ``decode_init(model, batch, s)``   -> decode state (KV cache / recurrent)
 * ``decode_step(model, state, tok)`` -> (logits, state)
 * ``prefill(model, batch, s)``       -> (logits, state)   (transformer families)
+* ``param_tree(model)``              -> the weights in the reference's tree
+  (``Layers`` leaves; see :mod:`repro_torch.models.common`)
+
+``loss`` records the autograd graph (``loss.backward()`` fills every
+weight's ``.grad``); the other functions run under
+``torch.inference_mode()``.
 
 ``batch`` is a dict: always ``tokens`` [B, S]; plus ``frames`` [B, T, D]
 (audio stub) or ``patches`` [B, P, D] (vlm stub).  Every family of the
@@ -36,7 +42,9 @@ class ModelAPI:
     forward: Callable[[Any, dict], torch.Tensor]
     decode_init: Callable[[Any, dict, int], Any]
     decode_step: Callable[[Any, Any, torch.Tensor], tuple]
+    param_tree: Callable[[Any], Any]
     prefill: Optional[Callable[[Any, dict, int], tuple]] = None
+    device: Optional[torch.device] = None    # where ``init`` puts weights
 
 
 def _transformer_api(cfg: ArchConfig, dev: torch.device) -> ModelAPI:
@@ -52,6 +60,7 @@ def _transformer_api(cfg: ArchConfig, dev: torch.device) -> ModelAPI:
         decode_init=lambda p, b, s_max: transformer.init_decode(
             cfg, b["tokens"].shape[0], s_max, dev),
         decode_step=lambda p, st, t: transformer.decode_step(p, st, t, cfg),
+        param_tree=lambda p: transformer.param_tree(p, cfg),
         prefill=lambda p, b, s_max: transformer.prefill(p, b["tokens"], cfg,
                                                         s_max))
 
@@ -64,7 +73,8 @@ def _rwkv_api(cfg: ArchConfig, dev: torch.device) -> ModelAPI:
         forward=lambda p, b: rwkv6.forward(p, b["tokens"], cfg),
         decode_init=lambda p, b, s_max: rwkv6.init_state(
             cfg, b["tokens"].shape[0], dev),
-        decode_step=lambda p, st, t: rwkv6.decode_step(p, st, t, cfg))
+        decode_step=lambda p, st, t: rwkv6.decode_step(p, st, t, cfg),
+        param_tree=lambda p: rwkv6.param_tree(p, cfg))
 
 
 def _griffin_api(cfg: ArchConfig, dev: torch.device) -> ModelAPI:
@@ -75,7 +85,8 @@ def _griffin_api(cfg: ArchConfig, dev: torch.device) -> ModelAPI:
         forward=lambda p, b: rglru.forward(p, b["tokens"], cfg),
         decode_init=lambda p, b, s_max: rglru.init_state(
             cfg, b["tokens"].shape[0], dev),
-        decode_step=lambda p, st, t: rglru.decode_step(p, st, t, cfg))
+        decode_step=lambda p, st, t: rglru.decode_step(p, st, t, cfg),
+        param_tree=lambda p: rglru.param_tree(p, cfg))
 
 
 def _whisper_api(cfg: ArchConfig, dev: torch.device) -> ModelAPI:
@@ -88,7 +99,8 @@ def _whisper_api(cfg: ArchConfig, dev: torch.device) -> ModelAPI:
                                              cfg),
         decode_init=lambda p, b, s_max: whisper.init_decode(
             p, b["frames"], cfg, s_max),
-        decode_step=lambda p, st, t: whisper.decode_step(p, st, t, cfg))
+        decode_step=lambda p, st, t: whisper.decode_step(p, st, t, cfg),
+        param_tree=lambda p: whisper.param_tree(p, cfg))
 
 
 _APIS = {"dense": _transformer_api, "moe": _transformer_api,
@@ -99,7 +111,8 @@ _APIS = {"dense": _transformer_api, "moe": _transformer_api,
 def build(cfg: ArchConfig, device=None) -> ModelAPI:
     if cfg.family not in _APIS:
         raise ValueError(f"unknown family: {cfg.family}")
-    return _APIS[cfg.family](cfg, resolve_device(device))
+    dev = resolve_device(device)
+    return dataclasses.replace(_APIS[cfg.family](cfg, dev), device=dev)
 
 
 def make_batch(cfg: ArchConfig, batch: int, seq: int,

@@ -13,9 +13,14 @@ of the full-sequence path is the flash-attention kernel with a window
 (``cfg.window``), once per super-block; windowed decode attention is plain
 PyTorch over a ring of ``window`` slots.  ``jax.nn.gelu`` is the tanh
 approximation, so the port's GELU is ``approximate="tanh"``.
+``forward`` and ``decode_step`` run under ``torch.inference_mode()``;
+``lm_loss`` runs the same blocks with gradients enabled (the attention
+kernel's backward once per super-block); its weights in the reference's
+tree are :func:`param_tree`.
 """
 from __future__ import annotations
 
+from collections import namedtuple
 from typing import NamedTuple
 
 import torch
@@ -23,9 +28,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models import attention as A
-from repro_torch.models.common import (ArchConfig, cross_entropy, dense_init,
-                                       embed_init, param, rms_norm,
-                                       tensor_from_numpy)
+from repro_torch.models.common import (ArchConfig, Layers, cross_entropy,
+                                       dense_init, embed_init, param,
+                                       rms_norm, stack_fields,
+                                       tensor_from_numpy, tree_to_host)
 
 LRU_C = 8.0   # Griffin's fixed exponent scale
 
@@ -46,6 +52,14 @@ class GLUParams(nn.Module):
 #: ln_mlp [D].
 REC_FIELDS = ("ln", "w_x", "w_y", "conv_w", "conv_b", "lam", "w_a", "b_a",
               "w_i", "b_i", "w_o", "ln_mlp")
+
+
+#: The reference's tree nodes.
+GriffinTree = namedtuple("GriffinParams", "embed supers tail ln_f")
+SuperTree = namedtuple("SuperBlock", "rec1 rec2 attn")
+RecTree = namedtuple("RecurrentBlock", REC_FIELDS + ("mlp",))
+AttnBlockTree = namedtuple("AttnBlock", "ln attn ln_mlp mlp")
+GLUTree = namedtuple("GLUParams", "w_gate w_up w_down")
 
 
 class RecurrentBlock(nn.Module):
@@ -161,6 +175,44 @@ def params_from_numpy(tree, cfg: ArchConfig, device=None) -> GriffinParams:
     return GriffinParams(t(tree.embed), supers, tail, t(tree.ln_f))
 
 
+def _rec_tree(blocks, like: RecurrentBlock) -> RecTree:
+    blocks = list(blocks)
+    return RecTree(mlp=stack_fields(GLUTree, [p.mlp for p in blocks],
+                                    like.mlp),
+                   **{f: Layers([getattr(p, f) for p in blocks],
+                                getattr(like, f)) for f in REC_FIELDS})
+
+
+def param_tree(params: GriffinParams, cfg: ArchConfig) -> GriffinTree:
+    """The weights in the reference's ``GriffinParams`` tree, each stacked
+    leaf a :class:`~repro_torch.models.common.Layers` (over the
+    super-blocks, or the tail's blocks).  Without super-blocks the
+    reference's leaves are [0, ...]: a ``meta`` block gives their shapes."""
+    sp = list(params.supers)
+    like = sp[0] if sp else SuperBlock(
+        params.tail[0], params.tail[0],
+        _init_attn_block(torch.Generator(), cfg, "meta"))
+    attn = AttnBlockTree(
+        ln=Layers([b.attn.ln for b in sp], like.attn.ln),
+        attn=stack_fields(A.AttnTree, [b.attn.attn for b in sp],
+                          like.attn.attn),
+        ln_mlp=Layers([b.attn.ln_mlp for b in sp], like.attn.ln_mlp),
+        mlp=stack_fields(GLUTree, [b.attn.mlp for b in sp], like.attn.mlp))
+    return GriffinTree(
+        embed=params.embed,
+        supers=SuperTree(rec1=_rec_tree([b.rec1 for b in sp], like.rec1),
+                         rec2=_rec_tree([b.rec2 for b in sp], like.rec2),
+                         attn=attn),
+        tail=_rec_tree(params.tail, params.tail[0]), ln_f=params.ln_f)
+
+
+def params_to_numpy(params: GriffinParams, cfg: ArchConfig) -> GriffinTree:
+    """The inverse of :func:`params_from_numpy`: the reference's tree,
+    super-blocks and tail stacked on a leading axis, on the host (numpy;
+    bfloat16 as CPU tensors)."""
+    return tree_to_host(param_tree(params, cfg))
+
+
 def _glu(p: GLUParams, x):
     h = torch.einsum("bsd,df->bsf", x, p.w_gate)
     u = torch.einsum("bsd,df->bsf", x, p.w_up)
@@ -263,10 +315,10 @@ def _logits(params: GriffinParams, x, cfg: ArchConfig):
     return torch.einsum("...d,dv->...v", x, params.embed.T.to(cfg.dtype))
 
 
-@torch.inference_mode()
-def forward(params: GriffinParams, tokens: torch.Tensor,
-            cfg: ArchConfig) -> torch.Tensor:
-    """tokens [B, S] -> logits [B, S, V]."""
+def _forward(params: GriffinParams, tokens: torch.Tensor,
+             cfg: ArchConfig) -> torch.Tensor:
+    """tokens [B, S] -> logits [B, S, V], recording the graph when
+    gradients are enabled."""
     x = params.embed[tokens].to(cfg.dtype)
     for sb in params.supers:
         x = _rec_block_train(sb.rec1, x, cfg)
@@ -277,9 +329,16 @@ def forward(params: GriffinParams, tokens: torch.Tensor,
     return _logits(params, x, cfg)
 
 
+@torch.inference_mode()
+def forward(params: GriffinParams, tokens: torch.Tensor,
+            cfg: ArchConfig) -> torch.Tensor:
+    """tokens [B, S] -> logits [B, S, V]."""
+    return _forward(params, tokens, cfg)
+
+
 def lm_loss(params: GriffinParams, tokens: torch.Tensor,
             cfg: ArchConfig) -> torch.Tensor:
-    logits = forward(params, tokens, cfg)
+    logits = _forward(params, tokens, cfg)
     return cross_entropy(logits[:, :-1], tokens[:, 1:])
 
 

@@ -10,9 +10,14 @@ recurrent model) runs the WKV6 recurrence through
 :func:`repro_torch.kernels.rwkv_scan.ops.wkv6_seq`: the CUDA kernel on a
 CUDA tensor, its plain version on a CPU tensor, once per layer.
 ``decode_step`` steps one token in plain PyTorch, as the reference does.
+``forward`` and ``decode_step`` run under ``torch.inference_mode()``;
+``lm_loss`` runs the same layers with gradients enabled (the kernel's
+backward once per layer); its weights in the reference's tree are
+:func:`param_tree`.
 """
 from __future__ import annotations
 
+from collections import namedtuple
 from typing import NamedTuple
 
 import torch
@@ -20,9 +25,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels.rwkv_scan.ops import wkv6_seq
-from repro_torch.models.common import (ArchConfig, cross_entropy, dense_init,
-                                       embed_init, layer_norm, param,
-                                       tensor_from_numpy)
+from repro_torch.models.common import (ArchConfig, Layers, cross_entropy,
+                                       dense_init, embed_init, layer_norm,
+                                       param, tensor_from_numpy,
+                                       tree_to_host)
 
 TM_LORA = 32      # token-mix lora rank
 DW_LORA = 64      # decay lora rank
@@ -45,6 +51,10 @@ LAYER_FIELDS = ("ln1_s", "ln1_b", "ln2_s", "ln2_b",
                 "wcv",       # [F, D]
                 "wcr")       # [D, D]
 MODEL_FIELDS = ("embed", "ln0_s", "ln0_b", "lnf_s", "lnf_b", "head")
+#: The reference's ``RWKVParams`` and ``RWKVLayer`` nodes.
+RWKVTree = namedtuple("RWKVParams",
+                    "embed ln0_s ln0_b layers lnf_s lnf_b head")
+LayerTree = namedtuple("RWKVLayer", LAYER_FIELDS)
 
 
 class RWKVLayer(nn.Module):
@@ -116,6 +126,22 @@ def params_from_numpy(tree, cfg: ArchConfig, device=None) -> RWKV6LM:
               for i in range(cfg.n_layers)]
     return RWKV6LM(layers, **{name: t(getattr(tree, name))
                               for name in MODEL_FIELDS})
+
+
+def param_tree(params: RWKV6LM, cfg: ArchConfig) -> RWKVTree:
+    """The weights in the reference's ``RWKVParams`` tree, each layer leaf
+    a :class:`~repro_torch.models.common.Layers`."""
+    ly = list(params.layers)
+    return RWKVTree(layers=LayerTree(*(Layers([getattr(lp, f) for lp in ly])
+                                       for f in LAYER_FIELDS)),
+                    **{f: getattr(params, f) for f in MODEL_FIELDS})
+
+
+def params_to_numpy(params: RWKV6LM, cfg: ArchConfig) -> RWKVTree:
+    """The inverse of :func:`params_from_numpy`: the reference's tree,
+    layers stacked [L, ...], on the host (numpy; bfloat16 as CPU
+    tensors)."""
+    return tree_to_host(param_tree(params, cfg))
 
 
 class LayerState(NamedTuple):
@@ -238,11 +264,10 @@ def _layer_seq(lp: RWKVLayer, x: torch.Tensor, cfg: ArchConfig):
     return x + _channel_mix_seq(lp, h2)
 
 
-@torch.inference_mode()
-def forward(params: RWKV6LM, tokens: torch.Tensor,
-            cfg: ArchConfig) -> torch.Tensor:
-    """Full-sequence forward (the prefill): tokens [B,S] -> logits
-    [B,S,V]."""
+def _forward(params: RWKV6LM, tokens: torch.Tensor,
+             cfg: ArchConfig) -> torch.Tensor:
+    """Full-sequence logits [B,S,V], recording the graph when gradients
+    are enabled."""
     x = params.embed[tokens].to(cfg.dtype)
     x = layer_norm(x, params.ln0_s, params.ln0_b)
     for lp in params.layers:
@@ -251,8 +276,16 @@ def forward(params: RWKV6LM, tokens: torch.Tensor,
     return torch.einsum("bsd,dv->bsv", y, params.head.to(cfg.dtype))
 
 
+@torch.inference_mode()
+def forward(params: RWKV6LM, tokens: torch.Tensor,
+            cfg: ArchConfig) -> torch.Tensor:
+    """Full-sequence forward (the prefill): tokens [B,S] -> logits
+    [B,S,V]."""
+    return _forward(params, tokens, cfg)
+
+
 def lm_loss(params: RWKV6LM, tokens: torch.Tensor, cfg: ArchConfig):
-    logits = forward(params, tokens, cfg)
+    logits = _forward(params, tokens, cfg)
     return cross_entropy(logits[:, :-1], tokens[:, 1:])
 
 

@@ -9,10 +9,13 @@ leading ``L`` axis; a layer holds a dense MLP or, in an MoE config, an
 :class:`repro_torch.models.moe.MoEParams`.  ``forward`` (with the VLM's
 patch prefix), ``prefill`` and ``decode_step`` are the serving paths and
 run under ``torch.inference_mode()``; forward and prefill run the
-flash-attention kernel once per layer.
+flash-attention kernel once per layer.  ``lm_loss`` runs the same layers
+with gradients enabled (the kernel's backward once per layer); its
+weights in the reference's tree are :func:`param_tree`.
 """
 from __future__ import annotations
 
+from collections import namedtuple
 from typing import NamedTuple, Optional
 
 import torch
@@ -21,9 +24,16 @@ from torch import nn
 
 from repro_torch.models import attention as A
 from repro_torch.models import moe as M
-from repro_torch.models.common import (ArchConfig, apply_rope, cross_entropy,
-                                       dense_init, embed_init, param,
-                                       rms_norm, tensor_from_numpy)
+from repro_torch.models.common import (ArchConfig, Layers, apply_rope,
+                                       cross_entropy, dense_init, embed_init,
+                                       param, rms_norm,
+                                       stack_fields, tensor_from_numpy,
+                                       tree_to_host)
+
+#: The reference's ``LMParams``, ``LayerParams`` and ``MLPParams`` nodes.
+LMTree = namedtuple("LMParams", "embed layers ln_f lm_head")
+LayerTree = namedtuple("LayerParams", "ln_attn attn ln_mlp mlp moe")
+MLPTree = namedtuple("MLPParams", "w_gate w_up w_down")
 
 
 class MLPParams(nn.Module):
@@ -131,6 +141,30 @@ def params_from_numpy(tree, cfg: ArchConfig, device=None) -> TransformerLM:
                          None if tree.lm_head is None else t(tree.lm_head))
 
 
+def param_tree(params: TransformerLM, cfg: ArchConfig) -> LMTree:
+    """The weights in the reference's ``LMParams`` tree, each layer leaf a
+    :class:`~repro_torch.models.common.Layers`."""
+    ly = list(params.layers)
+    return LMTree(
+        embed=params.embed,
+        layers=LayerTree(
+            ln_attn=Layers([lp.ln_attn for lp in ly]),
+            attn=stack_fields(A.AttnTree, [lp.attn for lp in ly]),
+            ln_mlp=Layers([lp.ln_mlp for lp in ly]),
+            mlp=None if cfg.is_moe else stack_fields(
+                MLPTree, [lp.mlp for lp in ly]),
+            moe=stack_fields(M.MoETree, [lp.moe for lp in ly])
+            if cfg.is_moe else None),
+        ln_f=params.ln_f, lm_head=params.lm_head)
+
+
+def params_to_numpy(params: TransformerLM, cfg: ArchConfig) -> LMTree:
+    """The inverse of :func:`params_from_numpy`: the reference's tree,
+    layers stacked [L, ...], on the host (numpy; bfloat16 as CPU
+    tensors)."""
+    return tree_to_host(param_tree(params, cfg))
+
+
 def _layer_fwd(lp: LayerParams, x, cfg: ArchConfig, pos):
     h = rms_norm(x, lp.ln_attn, cfg.norm_eps)
     x = x + A.attention_train(lp.attn, h, cfg, causal=True, pos=pos)
@@ -143,10 +177,11 @@ def _logits(params: TransformerLM, x, cfg: ArchConfig):
     return torch.einsum("bsd,dv->bsv", x, params.head().to(cfg.dtype))
 
 
-@torch.inference_mode()
-def forward(params: TransformerLM, tokens: torch.Tensor, cfg: ArchConfig,
-            *, prefix_embed: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """tokens [B, S] -> logits [B, S(+P), V].
+def _forward(params: TransformerLM, tokens: torch.Tensor,
+                 cfg: ArchConfig, *,
+                 prefix_embed: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """tokens [B, S] -> logits [B, S(+P), V], recording the graph when
+    gradients are enabled.
 
     ``prefix_embed`` [B, P, D] prepends precomputed embeddings (the VLM
     patch stub)."""
@@ -160,9 +195,16 @@ def forward(params: TransformerLM, tokens: torch.Tensor, cfg: ArchConfig,
     return _logits(params, x, cfg)
 
 
+@torch.inference_mode()
+def forward(params: TransformerLM, tokens: torch.Tensor, cfg: ArchConfig,
+            *, prefix_embed: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """tokens [B, S] -> logits [B, S(+P), V] (the serving path)."""
+    return _forward(params, tokens, cfg, prefix_embed=prefix_embed)
+
+
 def lm_loss(params: TransformerLM, tokens: torch.Tensor, cfg: ArchConfig,
             prefix_embed: Optional[torch.Tensor] = None) -> torch.Tensor:
-    logits = forward(params, tokens, cfg, prefix_embed=prefix_embed)
+    logits = _forward(params, tokens, cfg, prefix_embed=prefix_embed)
     if prefix_embed is not None:
         logits = logits[:, prefix_embed.shape[1]:]
     return cross_entropy(logits[:, :-1], tokens[:, 1:])

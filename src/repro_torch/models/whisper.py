@@ -10,10 +10,15 @@ MHA (kv == heads).  The encoder's self-attention, the decoder's causal
 self-attention and its cross-attention (Sq != Sk) run the flash-attention
 kernel once per layer each; ``decode_step`` is plain PyTorch, as the
 reference computes it outside any kernel.  ``jax.nn.gelu`` is the tanh
-approximation, so the port's GELU is ``approximate="tanh"``.
+approximation, so the port's GELU is ``approximate="tanh"``.  ``encode``,
+``decode_train``, ``forward``, ``init_decode`` and ``decode_step`` run
+under ``torch.inference_mode()``; ``loss`` runs the same layers with
+gradients enabled (the attention kernel's backward three times a decoder
+layer's pair); its weights in the reference's tree are :func:`param_tree`.
 """
 from __future__ import annotations
 
+from collections import namedtuple
 from typing import NamedTuple
 
 import torch
@@ -21,9 +26,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models import attention as A
-from repro_torch.models.common import (ArchConfig, cross_entropy, dense_init,
-                                       embed_init, layer_norm, param,
-                                       tensor_from_numpy)
+from repro_torch.models.common import (ArchConfig, Layers, cross_entropy,
+                                       dense_init, embed_init, layer_norm,
+                                       param, stack_fields,
+                                       tensor_from_numpy, tree_to_host)
 
 
 class FFN(nn.Module):
@@ -61,6 +67,16 @@ class DecLayer(nn.Module):
 #: ``dec_layers`` are module lists between them).
 MODEL_FIELDS = ("enc_pos", "enc_lnf_s", "enc_lnf_b", "tok_embed", "dec_pos",
                 "dec_lnf_s", "dec_lnf_b")
+
+
+#: The reference's tree nodes.
+WhisperTree = namedtuple("WhisperParams",
+                       "enc_pos enc_layers enc_lnf_s enc_lnf_b tok_embed "
+                       "dec_pos dec_layers dec_lnf_s dec_lnf_b")
+EncTree = namedtuple("EncLayer", "ln1_s ln1_b attn ln2_s ln2_b ffn")
+DecTree = namedtuple("DecLayer", "ln1_s ln1_b self_attn ln2_s ln2_b "
+                   "cross_attn ln3_s ln3_b ffn")
+FFNTree = namedtuple("FFN", "w1 b1 w2 b2")
 
 
 class WhisperParams(nn.Module):
@@ -156,9 +172,35 @@ def params_from_numpy(tree, cfg: ArchConfig, device=None) -> WhisperParams:
                                       for name in MODEL_FIELDS})
 
 
-@torch.inference_mode()
-def encode(params: WhisperParams, frames: torch.Tensor, cfg: ArchConfig):
-    """frames: [B, T, D] stubbed frame embeddings -> encoder states."""
+def _layers_tree(cls, layers, subtrees: dict):
+    """``cls`` over the stacked ``layers``: the fields in ``subtrees``
+    (name -> node type) stacked node by node, the rest tensor by tensor."""
+    ly = list(layers)
+    return cls(**{f: stack_fields(subtrees[f], [getattr(lp, f) for lp in ly])
+                  if f in subtrees else Layers([getattr(lp, f) for lp in ly])
+                  for f in cls._fields})
+
+
+def param_tree(params: WhisperParams, cfg: ArchConfig) -> WhisperTree:
+    """The weights in the reference's ``WhisperParams`` tree, each layer
+    leaf a :class:`~repro_torch.models.common.Layers`."""
+    enc = _layers_tree(EncTree, params.enc_layers,
+                       {"attn": A.AttnTree, "ffn": FFNTree})
+    dec = _layers_tree(DecTree, params.dec_layers,
+                       {"self_attn": A.AttnTree, "cross_attn": A.AttnTree,
+                        "ffn": FFNTree})
+    return WhisperTree(enc_layers=enc, dec_layers=dec,
+                       **{f: getattr(params, f) for f in MODEL_FIELDS})
+
+
+def params_to_numpy(params: WhisperParams, cfg: ArchConfig) -> WhisperTree:
+    """The inverse of :func:`params_from_numpy`: the reference's tree,
+    layers stacked [L, ...], on the host (numpy; bfloat16 as CPU
+    tensors)."""
+    return tree_to_host(param_tree(params, cfg))
+
+
+def _encode(params: WhisperParams, frames: torch.Tensor, cfg: ArchConfig):
     x = frames.to(cfg.dtype) + params.enc_pos[None]
     for lp in params.enc_layers:
         h = layer_norm(x, lp.ln1_s, lp.ln1_b)
@@ -170,9 +212,13 @@ def encode(params: WhisperParams, frames: torch.Tensor, cfg: ArchConfig):
 
 
 @torch.inference_mode()
-def decode_train(params: WhisperParams, tokens: torch.Tensor,
-                 enc_out: torch.Tensor, cfg: ArchConfig):
-    """tokens [B, S] and encoder states [B, T, D] -> logits [B, S, V]."""
+def encode(params: WhisperParams, frames: torch.Tensor, cfg: ArchConfig):
+    """frames: [B, T, D] stubbed frame embeddings -> encoder states."""
+    return _encode(params, frames, cfg)
+
+
+def _decode_train(params: WhisperParams, tokens: torch.Tensor,
+                  enc_out: torch.Tensor, cfg: ArchConfig):
     s = tokens.shape[1]
     x = params.tok_embed[tokens].to(cfg.dtype) + params.dec_pos[None, :s]
     for lp in params.dec_layers:
@@ -187,15 +233,28 @@ def decode_train(params: WhisperParams, tokens: torch.Tensor,
     return torch.einsum("bsd,vd->bsv", x, params.tok_embed.to(cfg.dtype))
 
 
+@torch.inference_mode()
+def decode_train(params: WhisperParams, tokens: torch.Tensor,
+                 enc_out: torch.Tensor, cfg: ArchConfig):
+    """tokens [B, S] and encoder states [B, T, D] -> logits [B, S, V]."""
+    return _decode_train(params, tokens, enc_out, cfg)
+
+
+def _forward(params: WhisperParams, frames: torch.Tensor,
+             tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    return _decode_train(params, tokens, _encode(params, frames, cfg), cfg)
+
+
+@torch.inference_mode()
 def forward(params: WhisperParams, frames: torch.Tensor,
             tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     """Encode ``frames``, then the decoder's logits over ``tokens``."""
-    return decode_train(params, tokens, encode(params, frames, cfg), cfg)
+    return _forward(params, frames, tokens, cfg)
 
 
 def loss(params: WhisperParams, frames: torch.Tensor, tokens: torch.Tensor,
          cfg: ArchConfig) -> torch.Tensor:
-    logits = forward(params, frames, tokens, cfg)
+    logits = _forward(params, frames, tokens, cfg)
     return cross_entropy(logits[:, :-1], tokens[:, 1:])
 
 

@@ -6,8 +6,12 @@ repair queue like the chaos runner's snapshots, and on a nested tree of
 dicts, tuples, a NamedTuple and ``None`` whose same-shaped leaves pin
 JAX's leaf order.  Then the port passes its own versions of the manager
 cases of ``tests/test_checkpoint_train.py`` (round trip, keep-k and
-latest, shape mismatch, atomicity and the corruption injections), and a
-bfloat16 leaf raises instead of converting.
+latest, shape mismatch, atomicity and the corruption injections).  A
+bfloat16 leaf is written as the reference's bytes (descr ``<V2``,
+manifest ``bfloat16``) and restores bit for bit as a CPU bfloat16
+tensor; one whose file was swapped for another dtype or shape raises.
+(The reference cannot restore such a leaf itself, so the restore is
+specified and held port to port.)
 """
 import os
 from typing import NamedTuple
@@ -137,10 +141,69 @@ def test_tensor_leaves_save_from_any_layout(tmp_path):
 
 
 def test_bfloat16_leaf_raises(tmp_path):
+    """A bfloat16 leaf whose file no longer holds 2-byte values (a swapped
+    dtype) or holds another shape raises; the saved one restores."""
     mgr = CheckpointManager(str(tmp_path))
-    with pytest.raises(ValueError, match="ROADMAP item 14"):
-        mgr.save({"w": torch.ones(4, dtype=torch.bfloat16)}, step=1)
-    assert mgr.steps() == []
+    w = torch.arange(8, dtype=torch.float32).to(torch.bfloat16)
+    mgr.save({"w": w}, step=1)
+    assert torch.equal(mgr.restore({"w": w}, 1)["w"], w)
+    path = os.path.join(tmp_path, "step_00000001", "leaf_00000.npy")
+    for bad in (np.arange(8, dtype=np.float16), np.arange(8, dtype=np.int16),
+                np.arange(8, dtype=np.float32)):
+        np.save(path, bad)
+        with pytest.raises(ValueError, match="dtype"):
+            mgr.restore({"w": w}, 1)
+        with pytest.raises(ValueError, match="dtype"):
+            mgr.restore_raw(1)
+    np.save(path, np.zeros(9, np.uint16).view("V2"))
+    with pytest.raises(ValueError, match="shape"):
+        mgr.restore({"w": w}, 1)
+
+
+BF16_VALUES = [0.0, -0.0, 1.0, -2.5, 3.140625, 1e-30, 65504.0, float("inf"),
+               float("-inf"), 1.0e38]
+
+
+@pytest.mark.parametrize("shape", [(10,), (2, 5), ()])
+def test_bfloat16_leaf_is_the_reference_bytes(tmp_path, shape):
+    """The port's file for a bfloat16 tensor is the reference's file for the
+    same values (an ml_dtypes bfloat16 array): same ``.npy`` and manifest
+    bytes."""
+    vals = np.array(BF16_VALUES[:int(np.prod(shape, dtype=int))],
+                    np.float32).reshape(shape)
+    CheckpointManager(str(tmp_path / "port")).save(
+        {"w": torch.from_numpy(vals).to(torch.bfloat16), "b": torch.ones(2)},
+        step=2)
+    JManager(str(tmp_path / "ref")).save(
+        {"w": jnp.asarray(vals, jnp.bfloat16), "b": jnp.ones(2)}, step=2)
+    assert _files(tmp_path / "port" / "step_00000002") == \
+        _files(tmp_path / "ref" / "step_00000002")
+
+
+def test_bfloat16_leaf_restores_bit_for_bit(tmp_path):
+    """bf16 leaves (a tensor on any layout, an ml_dtypes array, NaN and
+    signed zero included) come back as CPU bfloat16 tensors of the same
+    bits, beside f32 and int leaves; restore_raw and restore_latest too."""
+    rng = np.random.default_rng(0)
+    bits = rng.integers(0, 1 << 16, (6, 4)).astype(np.uint16)
+    w = torch.from_numpy(bits.view(np.int16)).view(torch.bfloat16)
+    tree = {"w": w.t(), "m": torch.randn(3), "step": torch.tensor(
+        7, dtype=torch.int32), "j": jnp.asarray(bits[0].view(np.int16))
+        .view(jnp.bfloat16)}
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(tree, step=5)
+    got, step = mgr.restore_latest(tree)
+    assert step == 5
+    assert got["w"].dtype == torch.bfloat16 and got["w"].device.type == "cpu"
+    assert torch.equal(got["w"].view(torch.int16),
+                       w.t().contiguous().view(torch.int16))
+    assert np.array_equal(got["j"].view(torch.int16).numpy(),
+                          bits[0].view(np.int16))
+    assert np.array_equal(got["m"], tree["m"].numpy())
+    assert got["step"].dtype == np.int32 and int(got["step"]) == 7
+    raw = mgr.restore_raw(5)             # leaf 0 is "j" (sorted keys)
+    assert torch.equal(raw["leaf_00000"].view(torch.int16),
+                       torch.from_numpy(bits[0].view(np.int16)))
 
 
 # -- the manager cases of tests/test_checkpoint_train.py, on the port ---------

@@ -11,7 +11,10 @@ entries: gathered rows, and the pool with leaf ids); flash
 attention 2e-5 in f32 and 3e-2 in bf16 at the reference kernel test's
 shapes (tests/test_kernels.py), 4e-3 absolute plus 1e-2 relative in bf16
 at the models' widths and on the wgmma route's own cases; WKV6 1e-4 in
-f32 and 0.15 in bf16; the reduced models (every family) 1e-4 in f32."""
+f32 and 0.15 in bf16; the reduced models (every family) 1e-4 in f32.
+The backward kernels: attention's 2e-5 in f32 and 4e-2 absolute plus
+2e-2 relative in bf16, WKV6's each gradient within 1e-4 · max(1,
+max|g|); one train step of every reduced family 1e-4 in f32."""
 import copy
 import dataclasses
 
@@ -42,9 +45,9 @@ pytestmark = [pytest.mark.cuda,
 
 
 def close(got, want, atol, rtol):
-    np.testing.assert_allclose(got.float().cpu().numpy(),
-                               want.float().cpu().numpy(), atol=atol,
-                               rtol=rtol)
+    np.testing.assert_allclose(got.detach().float().cpu().numpy(),
+                               want.detach().float().cpu().numpy(),
+                               atol=atol, rtol=rtol)
 
 
 # --------------------------------------------------------------------------
@@ -623,3 +626,128 @@ def test_sharded_mesh_on_the_card_matches_cpu():
         assert g["launches"] == len(lookups) and c["launches"] == 0
         for part in ("lookup", "wave", "coords"):
             _same_rank_result(g[part], c[part], f"rank {rank} {part}")
+
+
+# --------------------------------------------------------------------------
+# the backward kernels and the training step: card against CPU
+# --------------------------------------------------------------------------
+
+# (B, H, KV, Sq, Sk, hd, causal, window, dtype): f32 at 2e-5, bf16 at 4e-2
+# absolute plus 2e-2 relative (both sides round dq, dk, dv to bf16; the
+# kernel's D = dO.o reads the forward's bf16 o)
+BWD_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (4e-2, 2e-2)}
+FLASH_BWD_CASES = [(2, 4, 2, 64, 64, 64, True, 0, "float32"),
+                   (1, 2, 1, 100, 37, 16, False, 0, "float32"),
+                   (1, 4, 1, 300, 100, 128, True, 40, "float32"),
+                   (1, 2, 2, 130, 130, 256, True, 17, "float32"),
+                   (2, 4, 2, 77, 200, 32, False, 0, "float32"),
+                   (2, 4, 2, 256, 256, 64, True, 0, "bfloat16"),
+                   (1, 2, 1, 200, 120, 256, True, 64, "bfloat16"),
+                   (1, 6, 3, 130, 130, 16, False, 0, "bfloat16")]
+
+
+@pytest.mark.parametrize("b,h,kv,sq,sk,hd,causal,window,dtype",
+                         FLASH_BWD_CASES)
+def test_flash_attention_bwd_kernel_matches_plain_version(
+        b, h, kv, sq, sk, hd, causal, window, dtype):
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_bwd
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+    rng = np.random.default_rng(sq * 31 + sk + hd)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).to(getattr(torch, dtype)).cuda()
+        for s in ((b, h, sq, hd), (b, kv, sk, hd), (b, kv, sk, hd),
+                  (b, h, sq, hd)))
+    kw = dict(causal=causal, window=window)
+    o = flash_attention(q, k, v, **kw)
+    n0 = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, o, do, **kw)
+    again = flash_attention_bwd(q, k, v, o, do, **kw)
+    want = attention_bwd_ref(q, k, v, do, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == n0 + 2
+    for g, a, w in zip(got, again, want):
+        assert g.dtype == q.dtype
+        assert torch.equal(g, a)                  # no atomics
+        close(g, w, *BWD_TOL[dtype])
+
+
+def test_flash_attention_autograd_runs_the_backward_kernel():
+    """Through the model layout's autograd Function: one forward and one
+    backward launch, the plain version's gradients on the CPU."""
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_bwd
+    rng = np.random.default_rng(4)
+    host = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+            for s in ((2, 50, 6, 64), (2, 50, 2, 64), (2, 50, 2, 64),
+                      (2, 50, 6, 64))]
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        leaves = [x.detach().clone().to(dev).requires_grad_(True)
+                  for x in host[:3]]
+        n0 = (flash_attention.launches, flash_attention_bwd.launches)
+        out = flash_sdpa(*leaves, causal=True)
+        (out * host[3].to(dev)).sum().backward()
+        n1 = (flash_attention.launches, flash_attention_bwd.launches)
+        assert n1 == ((n0[0] + 1, n0[1] + 1) if dev == "cuda" else n0)
+        grads[dev] = [x.grad.cpu() for x in leaves]
+    for g, w in zip(grads["cuda"], grads["cpu"]):
+        close(g, w, 2e-5, 2e-5)
+
+
+@pytest.mark.parametrize("b,h,t,n", [(2, 3, 1, 16), (2, 3, 15, 16),
+                                     (1, 2, 17, 32), (2, 2, 40, 64),
+                                     (1, 32, 67, 64)])
+def test_wkv6_bwd_kernel_matches_plain_version(b, h, t, n):
+    """Each gradient within 1e-4 · max(1, max|g|) (f32 sums in other
+    orders); a rerun gives the same bits."""
+    from repro_torch.kernels.rwkv_scan.kernel import wkv6_bwd
+    from repro_torch.kernels.rwkv_scan.ref import wkv6_bwd_ref
+    args = wkv_inputs(b * t + n, b, h, t, n, "float32")
+    do = torch.from_numpy(np.random.default_rng(t).standard_normal(
+        (b, h, t, n)).astype(np.float32)).cuda()
+    n0 = wkv6_bwd.launches
+    got = wkv6_bwd(*args, do)
+    again = wkv6_bwd(*args, do)
+    want = wkv6_bwd_ref(*args, do)
+    torch.cuda.synchronize()
+    assert wkv6_bwd.launches == n0 + 2
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a)
+        close(g, w, 1e-4 * max(1.0, float(w.abs().max())), 0.0)
+
+
+def test_wkv6_bwd_takes_only_f32():
+    from repro_torch.kernels.rwkv_scan.kernel import wkv6_bwd
+    args = wkv_inputs(1, 1, 2, 8, 16, "bfloat16")
+    with pytest.raises(TypeError, match="float32"):
+        wkv6_bwd(*args, args[0].float())
+
+
+@pytest.mark.parametrize("name", list(MODEL_CASES))
+def test_train_step_on_the_card_matches_cpu(name):
+    """One ``make_train_step`` (loss, backward through the kernels' backward
+    kernels, AdamW) on the card == the CPU's within 1e-4 in f32: the
+    metrics and every parameter after the update."""
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models.common import flat_params
+    from repro_torch.optim import adamw
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(TC.get_reduced(name), **MODEL_CASES[name])
+    opt = adamw.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+    cpu = TREG.build(cfg, device="cpu")
+    model = cpu.init(torch.Generator().manual_seed(0))
+    gpu = TREG.build(cfg, device="cuda")
+    model_gpu = copy.deepcopy(model).to("cuda")
+    batch = TREG.make_batch(cfg, 2, 24, torch.Generator().manual_seed(1),
+                            "cpu")
+    out = {}
+    for dev, api, m in (("cuda", gpu, model_gpu), ("cpu", cpu, model)):
+        params = flat_params(api.param_tree(m))
+        _, _, metrics = make_train_step(api, opt)(
+            m, adamw.init(params), {k: t.to(dev) for k, t in batch.items()})
+        out[dev] = (metrics, params)
+    for k in ("loss", "grad_norm", "lr"):
+        close(out["cuda"][0][k], out["cpu"][0][k], 1e-4, 1e-4)
+    for g, c in zip(out["cuda"][1], out["cpu"][1]):
+        close(g.detach(), c.detach(), 1e-4, 1e-4)

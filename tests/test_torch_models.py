@@ -34,7 +34,8 @@ DTYPES = {jnp.bfloat16: torch.bfloat16, jnp.float32: torch.float32}
 
 
 def close(got, want, tol=TOL):
-    got = got.float().numpy() if isinstance(got, torch.Tensor) else got
+    got = got.detach().float().numpy() if isinstance(got, torch.Tensor) \
+        else got
     np.testing.assert_allclose(got, np.asarray(want, np.float32), atol=tol,
                                rtol=tol)
 
@@ -186,7 +187,8 @@ def test_params_from_numpy_keeps_values_dtypes_and_shapes():
 @pytest.mark.parametrize("name", DENSE + ["rwkv6_1_6b"])
 def test_port_init_has_the_reference_shapes(name):
     """The port's own init (a torch.Generator) gives every weight the
-    reference's shape and dtype, layer by layer."""
+    reference's shape and dtype, layer by layer, trainable (``loss`` takes
+    their gradient; the serving paths run under inference mode)."""
     jcfg, jp, tcfg, _ = carried(name)
     api = TREG.build(tcfg, device="cpu")
     model = api.init(torch.Generator().manual_seed(0))
@@ -196,7 +198,7 @@ def test_port_init_has_the_reference_shapes(name):
     got = {k: (tuple(v.shape), v.dtype) for k, v in model.named_parameters()}
     want = {k: (tuple(v.shape), v.dtype) for k, v in ref.named_parameters()}
     assert got == want
-    assert not any(v.requires_grad for v in model.parameters())
+    assert all(v.requires_grad for v in model.parameters())
 
 
 def test_dense_forward_and_loss_match_the_reference(dense):

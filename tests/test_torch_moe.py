@@ -36,7 +36,8 @@ MOE = {"qwen": ("qwen2_moe_a2_7b", {}),
 
 
 def close(got, want, tol=TOL):
-    got = got.float().numpy() if isinstance(got, torch.Tensor) else got
+    got = got.detach().float().numpy() if isinstance(got, torch.Tensor) \
+        else got
     np.testing.assert_allclose(got, np.asarray(want, np.float32), atol=tol,
                                rtol=tol)
 
@@ -105,7 +106,8 @@ def test_top_k_breaks_ties_toward_the_lower_expert():
     """Equal gates pick the lower index first, as jax.lax.top_k does."""
     cfg = dataclasses.replace(TC.get_reduced("qwen2_moe_a2_7b"), top_k=2)
     m = TM.init_moe(torch.Generator().manual_seed(0), cfg, device="cpu")
-    m.router.zero_()                               # every gate 1/E
+    with torch.no_grad():
+        m.router.zero_()                           # every gate 1/E
     _, topi, pos = TM.route(m, torch.ones((3, cfg.d_model)), cfg)
     assert topi.tolist() == [[0, 1]] * 3
     assert pos.tolist() == [[0, 0], [1, 1], [2, 2]]
@@ -157,7 +159,7 @@ def test_moe_params_from_numpy_keeps_none_and_shapes():
     for i, lp in enumerate(tp.layers):
         assert lp.mlp is None and lp.moe.shared_gate is None
         assert lp.moe.router.dtype == torch.float32
-        np.testing.assert_array_equal(lp.moe.w_up.numpy(),
+        np.testing.assert_array_equal(lp.moe.w_up.detach().numpy(),
                                       np.asarray(jp.layers.moe.w_up[i]))
     toks = tokens(4, 2, 10, jcfg.vocab)
     close(TT.forward(tp, torch.from_numpy(toks), tcfg),

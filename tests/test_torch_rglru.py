@@ -31,7 +31,8 @@ CASES = {"reduced": {}, "super-block": {"n_layers": 5, "window": 6}}
 
 
 def close(got, want, tol=TOL):
-    got = got.float().numpy() if isinstance(got, torch.Tensor) else got
+    got = got.detach().float().numpy() if isinstance(got, torch.Tensor) \
+        else got
     np.testing.assert_allclose(got, np.asarray(want, np.float32), atol=tol,
                                rtol=tol)
 

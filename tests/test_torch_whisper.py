@@ -25,7 +25,8 @@ MAX_POS = 64
 
 
 def close(got, want, tol=TOL):
-    got = got.float().numpy() if isinstance(got, torch.Tensor) else got
+    got = got.detach().float().numpy() if isinstance(got, torch.Tensor) \
+        else got
     np.testing.assert_allclose(got, np.asarray(want, np.float32), atol=tol,
                                rtol=tol)
 
@@ -120,7 +121,7 @@ def test_port_init_has_the_reference_shapes(carried):
     got = {k: (tuple(v.shape), v.dtype) for k, v in model.named_parameters()}
     want = {k: (tuple(v.shape), v.dtype) for k, v in tp.named_parameters()}
     assert got == want
-    close(model.enc_pos, tp.enc_pos, 1e-6)
+    close(model.enc_pos, tp.enc_pos.detach(), 1e-6)
     api = TREG.build(tcfg, device="cpu")
     assert api.init(torch.Generator().manual_seed(0)).dec_pos.shape == (
         33_024, tcfg.d_model)

@@ -12,8 +12,8 @@ Phases, in order; any failure raises and exits non-zero:
    (the three kernels and the two backward kernels), one ``nvcc`` per
    source, all started together; print ptxas's registers,
    spills and performance notes per kernel (raise on a spill) and the
-   count of ``HGMMA`` (wgmma) instructions in the flash library's SASS
-   (raise if 0);
+   count of ``HGMMA`` (wgmma) instructions in the SASS of the flash
+   attention library and of its backward's (raise if 0);
 3. kernel  — hold each CUDA kernel against its plain version on the card
    (leaf search bit for bit, both entries: gathered rows, and the pool
    with leaf ids; flash attention and WKV6 within the reference kernel
@@ -105,7 +105,8 @@ differ from the counts above.
    grad norm and every parameter and moment after the update within 1e-4;
 14. train-smollm-135m — ``launch/train.py::run`` at full width in bf16,
    4 steps (1 warm, 3 timed) at 4 × 4096 tokens: a line a step, tokens/s,
-   peak memory, K2's forward and backward launches a step (30 and 30);
+   peak memory, K2's forward and backward launches a step (30 and 30,
+   every one on the ``wgmma`` route);
    a checkpoint (bf16 weights, f32 moments) restored bit for bit; a
    profiled fifth step (the top kernels, the device's idle share); ``run``
    resumed from the checkpoint, whose step gives the fifth step's loss;
@@ -114,9 +115,12 @@ differ from the counts above.
 
 Phase 3 also holds K2's and K3's backward kernels against their plain
 versions' autograd (f32 and bf16, Sq != Sk, rows that see no key; a rerun
-bit for bit) and times them at smollm's and recurrentgemma's attention
-shapes and rwkv6's training shape, beside their bounds, the plain
-versions and SDPA's backward.
+bit for bit; K2's backward on both of its routes: ``wgmma`` for bf16 at
+hd 64 and 128, from the forward's log-sum-exp, which is held against its
+plain version too, and ``fma`` for f32 and bf16 at hd 16, 32 and 256) and
+times them at smollm's and recurrentgemma's attention shapes and rwkv6's
+training shape, beside their bounds, the plain versions and SDPA's
+backward.
 
 The line before the last is a JSON object with the kernels' numbers; the
 last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -382,15 +386,16 @@ def phase_build_report(names, libs, logs) -> None:
     if spills:
         raise AssertionError("register spills: " + "; ".join(spills))
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([cuobjdump, "-sass", str(libs["flash_attention"])],
-                          capture_output=True, text=True, check=True,
-                          timeout=120).stdout
-    n_hgmma = sum("HGMMA" in ln for ln in sass.splitlines())
-    log(f"build   flash_attention: {n_hgmma} HGMMA instructions in the SASS "
-        f"({cuobjdump} -sass)")
-    if n_hgmma == 0:
-        raise AssertionError("the flash library has no wgmma (HGMMA) "
-                             "instruction")
+    for name in ("flash_attention", "flash_attention_bwd"):
+        sass = subprocess.run([cuobjdump, "-sass", str(libs[name])],
+                              capture_output=True, text=True, check=True,
+                              timeout=120).stdout
+        n_hgmma = sum("HGMMA" in ln for ln in sass.splitlines())
+        log(f"build   {name}: {n_hgmma} HGMMA instructions in the SASS "
+            f"({cuobjdump} -sass)")
+        if n_hgmma == 0:
+            raise AssertionError(f"the {name} library has no wgmma (HGMMA) "
+                                 "instruction")
 
 
 def leaf_pool(torch, n: int, f: int):
@@ -2070,7 +2075,11 @@ def phase_wkv(torch, wkv6, wkv6_ref, wkv6_seq):
 # dim, held at 4e-2 absolute plus 2e-2 relative: dq, dk and dv are rounded
 # to bf16 on both sides (one step is 2^-8 to 2^-7 of a value, 0.03125 at
 # |g| 4-8), and the kernel's D = dO.o reads the forward's bf16 o where
-# the plain version's autograd keeps o in f32; then the two timed shapes,
+# the plain version's autograd keeps o in f32 (the wgmma route also
+# rounds P and dS to bf16 for the tensor cores); bf16 at hd 64 and 128
+# takes the wgmma route: causal and full, GQA groups 1 to 4, ragged Sq
+# and Sk both ways, window edges inside a tile and rows that see no key;
+# then the two timed shapes,
 # smollm-135m's training shape and recurrentgemma-2b's local attention,
 # which the plain version's [S, S] f32 gradient still fits at full size.
 _BF16_BWD = ("bfloat16", 4e-2, 2e-2)
@@ -2086,7 +2095,18 @@ FLASH_BWD_CASES = [(2, 4, 2, 64, 64, 64, True, 0) + _F32,
                    (1, 2, 1, 200, 120, 256, True, 64) + _BF16_BWD,
                    (1, 2, 1, 50, 80, 128, False, 0) + _BF16_BWD,
                    (1, 6, 3, 130, 130, 16, False, 0) + _BF16_BWD,
-                   (1, 4, 2, 100, 100, 32, True, 0) + _BF16_BWD]
+                   (1, 4, 2, 100, 100, 32, True, 0) + _BF16_BWD,
+                   (1, 3, 3, 77, 77, 64, False, 0) + _BF16_BWD,
+                   (2, 9, 3, 300, 300, 64, True, 0) + _BF16_BWD,
+                   (1, 8, 2, 190, 333, 128, True, 0) + _BF16_BWD,
+                   (1, 4, 1, 333, 190, 128, False, 0) + _BF16_BWD,
+                   (1, 6, 2, 260, 260, 64, True, 100) + _BF16_BWD,
+                   (1, 2, 1, 150, 200, 64, False, 50) + _BF16_BWD,
+                   (1, 4, 1, 300, 100, 64, True, 40) + _BF16_BWD,
+                   (1, 4, 4, 300, 100, 128, True, 40) + _BF16_BWD]
+# the forward's log-sum-exp (the wgmma route's input) against
+# attention_lse_ref: f32 sums of ex2.approx terms in another order
+LSE_TOL = (1e-4, 1e-5)
 FLASH_BWD_TIMED = [(4, 9, 3, 4096, 4096, 64, True, 0) + _BF16_BWD,
                    (4, 10, 1, 4096, 4096, 256, True, 2048) + _BF16_BWD]
 # K3's backward (B, H, T, N), f32: its checkpoint chunks of 16 steps (1,
@@ -2127,14 +2147,26 @@ def attention_bwd_bound(torch, b, h, kv, sq, sk, hd, causal, window,
             n_bytes)
 
 
+def bwd_routes(flash_attention_bwd) -> dict:
+    """K2's backward launches by route (raises unless they add up)."""
+    routes = {"wgmma": flash_attention_bwd.launches_wgmma,
+              "fma": flash_attention_bwd.launches_fma}
+    if sum(routes.values()) != flash_attention_bwd.launches:
+        raise AssertionError(f"flash_attention_bwd launches "
+                             f"{flash_attention_bwd.launches} != by route "
+                             f"{routes}")
+    return routes
+
+
 def phase_flash_bwd(torch, flash_attention, flash_attention_bwd,
-                    attention_bwd_ref):
-    """K2's backward kernel against the plain version's autograd
-    (``FLASH_BWD_CASES``, then the timed shapes), bit for bit on a rerun;
-    times: the kernel (a CUDA graph of calls, and an eager call), the
-    plain version, and SDPA's backward (its forward + backward minus its
-    forward) as the library yardstick.  Returns the numbers of the timed
-    shapes."""
+                    attention_bwd_ref, attention_lse_ref, bwd_route_of):
+    """K2's backward kernels against the plain version's autograd
+    (``FLASH_BWD_CASES``, then the timed shapes), bit for bit on a rerun,
+    each call counted on its route; on the wgmma route the forward's
+    log-sum-exp against its plain version; times: the kernels (a CUDA
+    graph of calls, and an eager call), the plain version, and SDPA's
+    backward (its forward + backward minus its forward) as the library
+    yardstick.  Returns the numbers of the timed shapes."""
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda").manual_seed(14)
     torch.cuda.reset_peak_memory_stats()
@@ -2147,32 +2179,46 @@ def phase_flash_bwd(torch, flash_attention, flash_attention_bwd,
         k, v = (torch.randn((b, kv, sk, hd), generator=gen, device="cuda")
                 .to(dtype) for _ in range(2))
         kw = dict(causal=causal, window=window)
-        o = flash_attention(q, k, v, **kw)
-        n0 = flash_attention_bwd.launches
-        got = flash_attention_bwd(q, k, v, o, do, **kw)
-        again = flash_attention_bwd(q, k, v, o, do, **kw)
+        route = bwd_route_of(dtype, hd, window)
+        lse = None
+        if route == "wgmma":
+            lse = torch.empty((b, h, sq), dtype=torch.float32,
+                              device="cuda")
+        o = flash_attention(q, k, v, lse=lse, **kw)
+        n0 = bwd_routes(flash_attention_bwd)
+        got = flash_attention_bwd(q, k, v, o, do, lse=lse, **kw)
+        again = flash_attention_bwd(q, k, v, o, do, lse=lse, **kw)
         want = attention_bwd_ref(q, k, v, do, **kw)
         torch.cuda.synchronize()
-        if flash_attention_bwd.launches != n0 + 2:
-            raise AssertionError("flash_attention_bwd did not count its "
-                                 "launches")
+        n1 = bwd_routes(flash_attention_bwd)
+        if n1 != {r: n0[r] + 2 * (r == route) for r in n0}:
+            raise AssertionError(f"flash_attention_bwd launches by route "
+                                 f"{n0} -> {n1}, expected two on {route}")
         what = (f"flash_attention_bwd B={b} H={h} KV={kv} Sq={sq} Sk={sk} "
-                f"hd={hd} causal={causal} window={window} {dt}")
+                f"hd={hd} causal={causal} window={window} {dt} ({route} "
+                "route)")
         errs = [_check_close(torch, g, w, atol, rtol, f"{what} {n}")
                 for n, g, w in zip(("dq", "dk", "dv"), got, want)]
         if not all(torch.equal(x, y) for x, y in zip(got, again)):
             raise AssertionError(f"{what}: a rerun changed the bits")
+        lse_note = ""
+        if lse is not None:
+            lse_err = _check_close(torch, lse, attention_lse_ref(q, k, **kw),
+                                   *LSE_TOL, f"{what} lse")
+            lse_note = (f"; the forward's lse within {lse_err} of "
+                        f"attention_lse_ref (atol {LSE_TOL[0]} rtol "
+                        f"{LSE_TOL[1]})")
         max_err = max(max_err, *errs)
         log(f"kernel  {what}: max abs error dq {errs[0]} dk {errs[1]} dv "
             f"{errs[2]} (atol {atol} rtol {rtol}; max |dq|,|dk|,|dv| "
             + ", ".join(f"{float(w.float().abs().max()):.4g}" for w in want)
-            + "); a rerun gives the same bits")
+            + f"); a rerun gives the same bits{lse_note}")
         del got, again, want
         if case not in FLASH_BWD_TIMED:
             continue
         grads = tuple(torch.empty_like(t) for t in (q, k, v))
         kernel = lambda: flash_attention_bwd(q, k, v, o, do, grads=grads,
-                                             **kw)
+                                             lse=lse, **kw)
         ms = device_ms(torch, kernel, reps=5, samples=3)
         call_ms = host_ms(torch, kernel, reps=5, samples=3)
         plain_ms = once_ms(torch, lambda: attention_bwd_ref(q, k, v, do,
@@ -2213,11 +2259,11 @@ def phase_flash_bwd(torch, flash_attention, flash_attention_bwd,
             f"{ms / lib_ms:.3f}x SDPA's backward; {_peak(torch)}")
         timed_numbers.append(dict(
             shape=dict(B=b, H=h, KV=kv, S=sq, hd=hd, causal=causal,
-                       window=window, dtype=dt),
+                       window=window, dtype=dt, route=route),
             max_abs_err=max(errs), ms=ms, host_ms=call_ms,
             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
             library_ms=lib_ms))
-        del q, k, v, o, do, grads, leaves, lib_grads, mask
+        del q, k, v, o, do, grads, leaves, lib_grads, mask, lse
         torch.cuda.empty_cache()
     main, windowed = timed_numbers
     main["max_abs_err"] = max_err
@@ -2353,17 +2399,23 @@ def backward_launches(fa_bwd, wkv_bwd) -> dict:
             "wkv6_bwd": wkv_bwd.launches}
 
 
+def reset_backward(fa_bwd, wkv_bwd) -> None:
+    fa_bwd.launches = fa_bwd.launches_wgmma = fa_bwd.launches_fma = 0
+    wkv_bwd.launches = 0
+
+
 def phase_lm_parity_train(torch, get_reduced, registry, train, adamw,
                           flat_params, fa_bwd, wkv_bwd):
     """One ``make_train_step`` of a reduced f32 model of every family
     (``LM_PARITY``) on the card (the backward kernels) and on the CPU (the
     plain versions' autograd) from the same weights and batch: the loss,
     the grad norm and every parameter after the AdamW update within 1e-4;
-    K2's backward launched in every family with attention, K3's in
-    rwkv6.  Returns the backward launches."""
+    K2's backward launched in every family with attention (f32: its
+    ``fma`` route), K3's in rwkv6.  Returns the backward launches and
+    K2's backward launches by route."""
     torch.cuda.reset_peak_memory_stats()
     opt = adamw.AdamWConfig(**TRAIN_OPT)
-    fa_bwd.launches = wkv_bwd.launches = 0
+    reset_backward(fa_bwd, wkv_bwd)
     for name, over in LM_PARITY.items():
         cfg = dataclasses.replace(get_reduced(name), **over)
         cpu = registry.build(cfg, device="cpu")
@@ -2409,7 +2461,11 @@ def phase_lm_parity_train(torch, get_reduced, registry, train, adamw,
             f"moments after the update); max abs errors {errs}; backward "
             f"launches {launched}")
     log(f"lm-parity-train {_peak(torch)}")
-    return backward_launches(fa_bwd, wkv_bwd)
+    routes = bwd_routes(fa_bwd)
+    if routes["wgmma"]:
+        raise AssertionError(f"lm-parity-train (f32): K2's backward "
+                             f"launches by route {routes}, expected fma only")
+    return backward_launches(fa_bwd, wkv_bwd), routes
 
 
 # the training cells at full width: (tag, config, batch, seq, the backward
@@ -2512,7 +2568,8 @@ def phase_train(torch, get, registry, train, adamw, data, fa, fa_bwd, wkv,
             f"directory {ckdir}: "
             f"{shutil.disk_usage(ckdir).free / 1e9:.1f} GB free on its disk")
         reset_flash(fa)
-        fa_bwd.launches = wkv.launches = wkv_bwd.launches = 0
+        reset_backward(fa_bwd, wkv_bwd)
+        wkv.launches = 0
         t0 = time.perf_counter()
         out = train.run(api, tc, batch_size=b, seq=s, seed=0)
         torch.cuda.synchronize()
@@ -2530,6 +2587,12 @@ def phase_train(torch, get, registry, train, adamw, data, fa, fa_bwd, wkv,
         if fwd_name == "flash_attention":
             expect_routes(fa, {"wgmma": steps * per_step, "fma": 0},
                           f"{tag} train")
+            # every backward launch on the tensor cores
+            bwd = bwd_routes(fa_bwd)
+            if bwd != {"wgmma": steps * per_step, "fma": 0}:
+                raise AssertionError(f"{tag} train: flash_attention_bwd "
+                                     f"launches by route {bwd}, expected "
+                                     f"{steps * per_step} on wgmma")
         losses, secs = out["losses"], out["step_seconds"]
         if len(losses) != steps or not all(map(math.isfinite, losses)):
             raise AssertionError(f"{tag} train: losses {losses}")
@@ -2540,8 +2603,10 @@ def phase_train(torch, get, registry, train, adamw, data, fa, fa_bwd, wkv,
             f"{b * s * (steps - 1) / timed_s:.1f} tokens/s over the last "
             f"{steps - 1}; losses " + ", ".join(f"{x:.6f}" for x in losses)
             + f"; launches a step {fwd_name} {launches[fwd_name] // steps}, "
-            f"{bwd_name} {launches[bwd_name] // steps}; max_memory_allocated "
-            f"{peak}")
+            f"{bwd_name} {launches[bwd_name] // steps}"
+            + (f" (by route {bwd_routes(fa_bwd)} in the run)"
+               if bwd_name == "flash_attention_bwd" else "")
+            + f"; max_memory_allocated {peak}")
         model, opt_state = out["params"], out["opt_state"]
         del out
         # the checkpoint at the last step == the live state, bit for bit
@@ -2564,7 +2629,8 @@ def phase_train(torch, get, registry, train, adamw, data, fa, fa_bwd, wkv,
         batch = {k: torch.as_tensor(v).cuda() for k, v in next(
             data.synthetic_batches(cfg, b, s, seed=0, skip=steps)).items()}
         reset_flash(fa)
-        fa_bwd.launches = wkv.launches = wkv_bwd.launches = 0
+        reset_backward(fa_bwd, wkv_bwd)
+        wkv.launches = 0
         model, opt_state, metrics, idle = profile_train_step(
             torch, train.make_train_step(api, opt), model, opt_state, batch,
             tag)
@@ -3069,8 +3135,9 @@ def main(argv=None) -> int:
     from repro_torch.kernels import build
     from repro_torch.data import tokens as data
     from repro_torch.kernels.flash_attention.kernel import (
-        _route, flash_attention, flash_attention_bwd)
+        _bwd_route, _route, flash_attention, flash_attention_bwd)
     from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                         attention_lse_ref,
                                                          attention_ref)
     from repro_torch.kernels.leaf_search.kernel import (leaf_search,
                                                         leaf_search_pool)
@@ -3117,7 +3184,8 @@ def main(argv=None) -> int:
         torch, flash_attention, attention_ref, _route)
     torch.cuda.empty_cache()
     numbers["flash_attention_bwd"] = phase_flash_bwd(
-        torch, flash_attention, flash_attention_bwd, attention_bwd_ref)
+        torch, flash_attention, flash_attention_bwd, attention_bwd_ref,
+        attention_lse_ref, _bwd_route)
     numbers["wkv6_bwd"] = phase_wkv_bwd(torch, wkv6_bwd, wkv6_bwd_ref)
     torch.cuda.empty_cache()
 
@@ -3174,10 +3242,13 @@ def main(argv=None) -> int:
     # full-width training cells
     gc.collect()
     torch.cuda.empty_cache()
-    parity_bwd = phase_lm_parity_train(torch, get_reduced, registry, train,
-                                       adamw, flat_params,
-                                       flash_attention_bwd, wkv6_bwd)
+    parity_bwd, parity_routes = phase_lm_parity_train(
+        torch, get_reduced, registry, train, adamw, flat_params,
+        flash_attention_bwd, wkv6_bwd)
     bwd_paths = {"flash_attention_bwd": {}, "wkv6_bwd": {}}
+    # K2's backward by route on each path (the train cell raises unless
+    # all its launches took wgmma)
+    fa_bwd_routes = {"lm_parity_train": parity_routes}
     wkv_paths = {"rwkv_forward": launches["wkv6"]}
     for cell in TRAIN_CELLS:
         tag, bwd_name = cell[0], cell[4]
@@ -3190,6 +3261,8 @@ def main(argv=None) -> int:
         if bwd_name == "flash_attention_bwd":
             flash_paths[path] = {"wgmma": run_launches["flash_attention"],
                                  "fma": 0}
+            fa_bwd_routes[path] = {"wgmma": run_launches[bwd_name],
+                                   "fma": 0}
         else:
             wkv_paths[path] = run_launches["wkv6"]
     for bwd_name, paths in bwd_paths.items():
@@ -3217,6 +3290,9 @@ def main(argv=None) -> int:
         for route in ("wgmma", "fma")}
     kernels[2]["launches_by_path"] = wkv_paths
     kernels[3]["launches_by_path"] = bwd_paths["flash_attention_bwd"]
+    kernels[3]["launches_by_route"] = {
+        route: sum(r[route] for r in fa_bwd_routes.values())
+        for route in ("wgmma", "fma")}
     kernels[4]["launches_by_path"] = bwd_paths["wkv6_bwd"]
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

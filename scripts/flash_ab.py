@@ -10,15 +10,21 @@ own ``chip_smoke.py`` and ``src/``, its own flash-attention build) in a
 fresh process started from that checkout's root: every shape held against
 the plain version, then the timed prefill shapes (granite-3-8b's in bf16
 on the ``wgmma`` route and in f32 on the ``fma`` route, smollm-135m's in
-bf16), each on the device as a replayed CUDA graph.  The first run of a
-checkout builds its library and prints ptxas's lines for the ``fma``
-kernels, and every run prints a digest of each ``wgmma`` kernel's SASS
-(``cuobjdump -sass``, addresses and encodings stripped) by head dim and
-window flag, so two checkouts' instantiations can be seen to be the same
-code.  Its lines are printed under ``=== <checkout>``; the last line
-sums up each timed shape's device ms, run by run, per checkout, and each
-checkout's SASS digests.  Runs alternate so that a drift of the card's
-speed falls on both.  Imports nothing of JAX.
+bf16), each on the device as a replayed CUDA graph; where the checkout's
+forward takes ``lse=``, smollm-135m's shape is timed again without and
+with it (the ``kLse`` instantiation, as a training step's forward runs
+it), in turns (without, with, with, without).  The first run of a
+checkout builds its libraries (the forward's and the backward's) and
+prints ptxas's lines for the ``fma`` kernels, and every run prints a
+digest of each ``wgmma`` kernel's SASS (``cuobjdump -sass``, addresses
+and encodings stripped): the forward by head dim, window flag and lse
+flag (a checkout without the lse flag has only its flagless
+instantiations), the backward's row pass, dK/dV and dQ kernels by head
+dim and window flag, so two checkouts' instantiations can be seen to be
+the same code.  Its lines are printed under ``=== <checkout>``; the last
+line sums up each timed shape's device ms, run by run, per checkout, and
+each checkout's SASS digests.  Runs alternate so that a drift of the
+card's speed falls on both.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -31,7 +37,7 @@ from pathlib import Path
 
 # run in the checkout's root: its chip_smoke.py and src/ come first
 _CHILD = r"""
-import hashlib, os, re, subprocess, sys
+import hashlib, inspect, os, re, subprocess, sys
 import torch
 sys.path[:0] = [os.getcwd(), os.path.join(os.getcwd(), "src")]
 import chip_smoke
@@ -39,33 +45,64 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.kernel import _route, flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
 torch.backends.cuda.matmul.allow_tf32 = False
-lib = build.build_all(["flash_attention"])[0]
+names = ["flash_attention", "flash_attention_bwd"]
+libs = build.build_all(names)
 lines = build.BUILD_LOGS.get("flash_attention", "").splitlines()
 for i, ln in enumerate(lines):
     if "Compiling entry" in ln and "flash_fwd_kernel" in ln:
         regs = [n.strip() for n in lines[i + 1:i + 4]
                 if "registers" in n or "spill" in n]
         print("ptxas", ln.split("'")[1], *regs, flush=True)
-sass = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass", str(lib)],
-                      capture_output=True, text=True, check=True).stdout
-for fn in sass.split("Function : ")[1:]:
-    name, body = fn.split("\n", 1)
-    if "flash_wgmma_kernel" not in name:
-        continue
-    args = name.split("kernelILi")[1]
-    tag = args.split("E")[0] + (" window" if "ELb1E" in args else "")
-    code = [re.sub(r"/\*.*?\*/", "", ln).strip() for ln in
-            body.split("Function : ")[0].splitlines()]
-    code = [c for c in code if c and not c.startswith(".")]
-    print(f"sass wgmma hd {tag}: {len(code)} instructions, sha1 "
-          f"{hashlib.sha1(chr(10).join(code).encode()).hexdigest()}",
-          flush=True)
+# the wgmma kernels by name, head dim and bool flags (the forward's:
+# window, then lse where the checkout has it; the backward's: window)
+kernel_re = re.compile(r"(flash_wgmma_kernel|fa_bwd_dkdv_wgmma|"
+                       r"fa_bwd_dq_wgmma|fa_bwd_dot)ILi(\d+)E((?:Lb[01]E)*)")
+short = {"flash_wgmma_kernel": "wgmma", "fa_bwd_dkdv_wgmma": "bwd dkdv",
+         "fa_bwd_dq_wgmma": "bwd dq", "fa_bwd_dot": "bwd dot"}
+for lib in libs:
+    sass = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    for fn in sass.split("Function : ")[1:]:
+        name, body = fn.split("\n", 1)
+        m = kernel_re.search(name)
+        if m is None:
+            continue
+        flags = [f == "1" for f in re.findall(r"Lb([01])E", m.group(3))]
+        tag = (f"{short[m.group(1)]} hd {m.group(2)}"
+               + (" window" if flags[:1] == [True] else "")
+               + (" lse" if flags[1:2] == [True] else ""))
+        code = [re.sub(r"/\*.*?\*/", "", ln).strip() for ln in
+                body.split("Function : ")[0].splitlines()]
+        code = [c for c in code if c and not c.startswith(".")]
+        print(f"sass {tag}: {len(code)} instructions, sha1 "
+              f"{hashlib.sha1(chr(10).join(code).encode()).hexdigest()}",
+              flush=True)
 chip_smoke.phase_flash(torch, flash_attention, attention_ref, _route)
+if "lse" in inspect.signature(flash_attention).parameters:
+    # smollm-135m's prefill shape without and with the lse, in turns
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    b, h, kv, s, hd = 4, 9, 3, 4096, 64
+    q, k, v = (torch.randn((b, n, s, hd), generator=gen, device="cuda")
+               .to(torch.bfloat16) for n in (h, kv, kv))
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device="cuda")
+    runs = {False: [], True: []}
+    for with_lse in (False, True, True, False):
+        fn = lambda: flash_attention(q, k, v, causal=True, out=out,
+                                     lse=lse if with_lse else None)
+        runs[with_lse].append(chip_smoke.device_ms(torch, fn, reps=20,
+                                                   samples=5))
+    for with_lse, ms in runs.items():
+        print(f"lse timing B={b} H={h} KV={kv} S={s} hd={hd} bfloat16 causal "
+              f"(wgmma route, lse {'on' if with_lse else 'off'}): device "
+              + " ".join(f"{x:.6f}" for x in ms) + " ms (CUDA graph of 20 "
+              "calls, median of 5, each reading)", flush=True)
 """
 _TIMED = re.compile(r"(B=\d+ H=\d+ KV=\d+ S=\d+ hd=\d+ \w+) causal "
-                    r"\((\w+) route\): device ([0-9.]+) ms")
-_SASS = re.compile(r"sass wgmma hd (\d+(?: window)?): (\d+) instructions, "
-                   r"sha1 (\w+)")
+                    r"\((\w+ route(?:, lse o(?:n|ff))?)\): device "
+                    r"([0-9.]+(?: [0-9.]+)*) ms")
+_SASS = re.compile(r"sass ((?:wgmma|bwd \w+) hd \d+(?: window)?(?: lse)?): "
+                   r"(\d+) instructions, sha1 (\w+)")
 
 
 def main() -> int:
@@ -93,9 +130,10 @@ def main() -> int:
             raise SystemExit(f"flash phase of {name} exited "
                              f"{proc.returncode}")
         for shape, route, t in _TIMED.findall(proc.stdout):
-            ms[name].setdefault(f"{shape} {route}", []).append(float(t))
+            ms[name].setdefault(f"{shape} {route}", []).extend(
+                float(x) for x in t.split())
         for tag, n, digest in _SASS.findall(proc.stdout):
-            sass[name][f"hd {tag}"] = f"{n} instructions, sha1 {digest}"
+            sass[name][tag] = f"{n} instructions, sha1 {digest}"
     print(json.dumps({"device_ms": ms, "wgmma_sass": sass}), flush=True)
     return 0
 

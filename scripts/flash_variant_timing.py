@@ -3,6 +3,7 @@
 design variants of its kernels.
 
     python scripts/flash_variant_timing.py LABEL [CSRC_DIR] [--check]
+    python scripts/flash_variant_timing.py LABEL [CSRC_DIR] --bwd [--check]
 
 Builds ``CSRC_DIR/flash_attention.cu`` (default: the repo's
 ``src/repro_torch/csrc``; a variant is a copy of that directory with an
@@ -15,6 +16,17 @@ granite-3-8b (B=4, S=4096) beside PyTorch's SDPA, and recurrentgemma-2b's
 local attention (B=4, H=10, KV=1, S=4096, hd=256, window 2048) beside SDPA
 with the same boolean mask: the median over 7 samples of 20 back-to-back
 calls, CUDA events.
+
+With ``--bwd`` it builds ``CSRC_DIR/flash_attention_bwd.cu`` (and the
+forward, for its log-sum-exp) instead, prints the backward's wgmma
+kernels' ptxas lines, with ``--check`` holds the backward's wgmma route
+against the plain version's autograd on ragged, GQA, windowed and
+no-key-row cases at hd 64 and 128 (4e-2 + 2e-2, as chip_smoke.py), then
+times the backward at smollm-135m's training shape (B=4, H=9, KV=3,
+S=4096, hd=64, causal) and granite-3-8b's (B=4, H=32, KV=8, hd=128)
+beside SDPA's backward (SDPA's forward + backward minus its forward), the
+median over 7 samples of 20 calls, and splits one call's device time by
+kernel (``torch.profiler``, 5 calls).
 
 Each library links its own CUDA runtime, so run one variant per process,
 and compare variants inside one machine's run in turns (A B B A).
@@ -76,11 +88,94 @@ def event_ms(fn, reps: int = 20, samples: int = 7) -> float:
     return float(np.median(times))
 
 
+# the backward's wgmma cases (B, H, KV, Sq, Sk, hd, causal, window), held
+# at chip_smoke.py's bf16 tolerance; then the two timed shapes
+BWD_CASES = [(1, 3, 3, 77, 77, 64, False, 0), (2, 9, 3, 300, 300, 64, True, 0),
+             (1, 8, 2, 190, 333, 128, True, 0),
+             (1, 4, 1, 333, 190, 128, False, 0),
+             (1, 6, 2, 260, 260, 64, True, 100),
+             (1, 4, 1, 300, 100, 64, True, 40)]
+BWD_TIMED = [(4, 9, 3, 4096, 64), (4, 32, 8, 4096, 128)]
+
+
+def bwd_main(label: str) -> int:
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bwd)
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+    build.build_all(["flash_attention", "flash_attention_bwd"])
+    lines = build.BUILD_LOGS.get("flash_attention_bwd", "").splitlines()
+    for i, ln in enumerate(lines):
+        if "Potential" in ln or "setmaxnreg" in ln:
+            print(f"[{label}] {ln.strip()}")
+        if "Compiling entry" in ln and "fa_bwd_wgmma" in ln:
+            name = ln.split("'")[1]
+            for nxt in lines[i + 1:i + 4]:
+                if "registers" in nxt or "spill" in nxt:
+                    print(f"[{label}] {name[:60]}: {nxt.strip()}")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def inputs(b, h, kv, sq, sk, hd, causal, window=0):
+        q, do = (torch.randn((b, h, sq, hd), generator=gen, device="cuda")
+                 .to(torch.bfloat16) for _ in range(2))
+        k, v = (torch.randn((b, kv, sk, hd), generator=gen, device="cuda")
+                .to(torch.bfloat16) for _ in range(2))
+        lse = torch.empty((b, h, sq), dtype=torch.float32, device="cuda")
+        o = flash_attention(q, k, v, causal=causal, window=window, lse=lse)
+        return q, k, v, o, do, lse
+
+    if "--check" in sys.argv:
+        for case in BWD_CASES:
+            *shape, causal, window = case
+            q, k, v, o, do, lse = inputs(*shape, causal, window)
+            kw = dict(causal=causal, window=window)
+            got = flash_attention_bwd(q, k, v, o, do, lse=lse, **kw)
+            want = attention_bwd_ref(q, k, v, do, **kw)
+            errs = [(g.float() - w.float()).abs() for g, w in zip(got, want)]
+            ok = all(bool((e <= 4e-2 + 2e-2 * w.float().abs()).all())
+                     for e, w in zip(errs, want))
+            print(f"[{label}] bwd case {case}: max abs error "
+                  f"{max(float(e.max()) for e in errs)} ok {ok}", flush=True)
+            if not ok:
+                return 1
+    for b, h, kv, s, hd in BWD_TIMED:
+        q, k, v, o, do, lse = inputs(b, h, kv, s, s, hd, True)
+        grads = tuple(torch.empty_like(t) for t in (q, k, v))
+        kernel = lambda: flash_attention_bwd(q, k, v, o, do, lse=lse,
+                                             grads=grads, causal=True)
+        ms = event_ms(kernel)
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        sdpa = lambda: F.scaled_dot_product_attention(
+            *leaves, is_causal=True, enable_gqa=True)
+        fwd = event_ms(sdpa)
+        both = event_ms(lambda: torch.autograd.grad(sdpa(), leaves, do))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                kernel()
+            torch.cuda.synchronize()
+        split = {e.key: e.self_device_time_total / 5e3
+                 for e in prof.key_averages()
+                 if e.device_type != DeviceType.CPU}
+        print(f"[{label}] bwd B={b} H={h} KV={kv} S={s} hd={hd} causal ms "
+              f"{ms:.6f} sdpa backward {both - fwd:.6f} (forward + backward "
+              f"{both:.6f} minus forward {fwd:.6f}); by kernel "
+              + "; ".join(f"{key[:40]} {t:.6f}" for key, t in
+                          sorted(split.items(), key=lambda x: -x[1])),
+              flush=True)
+        del q, k, v, o, do, lse, grads, leaves
+        torch.cuda.empty_cache()
+    return 0
+
+
 def main() -> int:
-    args = [a for a in sys.argv[1:] if a != "--check"]
+    args = [a for a in sys.argv[1:] if a not in ("--check", "--bwd")]
     label = args[0]
     if len(args) > 1:
         build.CSRC = Path(args[1]).resolve()
+    if "--bwd" in sys.argv:
+        return bwd_main(label)
     lib = build.build_all(["flash_attention"])[0]
     lines = build.BUILD_LOGS.get("flash_attention", "").splitlines()
     for i, ln in enumerate(lines):

@@ -5,8 +5,9 @@
 // (repro/models/attention.py), which that kernel lacks.  Two kernels
 // share the entry point flash_attention_launch, and the caller names the
 // route: "wgmma" (bf16 at head dims 64, 128 and 256, with or without a
-// window, on the tensor cores; see flash_attention_wgmma.cuh) and "fma"
-// (below: f32 at head dims 16 to 256, bf16 at 16 and 32).
+// window, on the tensor cores, and at 64 and 128 writing each row's
+// log-sum-exp for the backward when asked; see flash_attention_wgmma.cuh)
+// and "fma" (below: f32 at head dims 16 to 256, bf16 at 16 and 32).
 //
 // The FMA kernel:
 // For each (b, h, query row i), with g = h / (H / KV) the shared KV head:
@@ -251,18 +252,39 @@ cudaError_t dispatch(int hd, const void* q, const void* k, const void* v,
 #undef FA_CASE
 }
 
-// The wgmma kernel at head dim HD, with the window compiled in or out.
+// The wgmma kernel at head dim HD, with the window compiled in or out, and
+// with the log-sum-exp written (kLse) or not.
+template <int HD, bool kLse>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
+                         void* o, int b, int h, int kvh, int sq, int sk,
+                         Strides qs, Strides ks, Strides vs, Strides os,
+                         float scale, int causal, int window, float* lse,
+                         cudaStream_t stream) {
+  if (window > 0)
+    return fa_wgmma::launch<HD, true, kLse>(q, k, v, o, b, h, kvh, sq, sk,
+                                            qs, ks, vs, os, scale, causal,
+                                            window, lse, stream);
+  return fa_wgmma::launch<HD, false, kLse>(q, k, v, o, b, h, kvh, sq, sk, qs,
+                                           ks, vs, os, scale, causal, 0, lse,
+                                           stream);
+}
+
+// The lse instantiations exist where the backward's wgmma route reads
+// them: hd 64 and 128.
 template <int HD>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                          void* o, int b, int h, int kvh, int sq, int sk,
                          Strides qs, Strides ks, Strides vs, Strides os,
-                         float scale, int causal, int window,
+                         float scale, int causal, int window, float* lse,
                          cudaStream_t stream) {
-  if (window > 0)
-    return fa_wgmma::launch<HD, true>(q, k, v, o, b, h, kvh, sq, sk, qs, ks,
-                                      vs, os, scale, causal, window, stream);
-  return fa_wgmma::launch<HD, false>(q, k, v, o, b, h, kvh, sq, sk, qs, ks,
-                                     vs, os, scale, causal, 0, stream);
+  if (lse == nullptr)
+    return launch_wgmma<HD, false>(q, k, v, o, b, h, kvh, sq, sk, qs, ks, vs,
+                                   os, scale, causal, window, nullptr,
+                                   stream);
+  if constexpr (HD == 64 || HD == 128)
+    return launch_wgmma<HD, true>(q, k, v, o, b, h, kvh, sq, sk, qs, ks, vs,
+                                  os, scale, causal, window, lse, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -272,11 +294,13 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
 // row i sees keys j with i - j < window; dtype 0 = f32, 1 = bf16 (q, k, v
 // and o alike); route 0 = the FMA kernel (f32 at hd 16, 32, 64, 128 or
 // 256, bf16 at 16 or 32), 1 = the wgmma kernel (bf16 at hd 64, 128 or 256,
-// every stride of a dim longer than 1 and every base 16-byte aligned).
-// Returns the launch's cudaError_t; a route that does not take the
-// arguments is cudaErrorInvalidValue.
+// every stride of a dim longer than 1 and every base 16-byte aligned);
+// lse null, or f32 [B,H,Sq] contiguous for each row's log-sum-exp (the
+// wgmma route at hd 64 and 128 only).  Returns the launch's cudaError_t; a
+// route that does not take the arguments is cudaErrorInvalidValue.
 extern "C" int flash_attention_launch(
-    const void* q, const void* k, const void* v, void* o, int b, int h,
+    const void* q, const void* k, const void* v, void* o, void* lse, int b,
+    int h,
     int kvh, int sq, int sk, int hd, int64_t qsb, int64_t qss, int64_t qsh,
     int64_t ksb, int64_t kss, int64_t ksh, int64_t vsb, int64_t vss,
     int64_t vsh, int64_t osb, int64_t oss, int64_t osh, float scale,
@@ -286,20 +310,21 @@ extern "C" int flash_attention_launch(
   const int group = h / kvh;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (window < 0) return cudaErrorInvalidValue;
+  float* lse_f = static_cast<float*>(lse);
   if (route == 1) {
     if (dtype != 1) return cudaErrorInvalidValue;
     if (hd == 64)
       return launch_wgmma<64>(q, k, v, o, b, h, kvh, sq, sk, qs, ks, vs, os,
-                              scale, causal, window, st);
+                              scale, causal, window, lse_f, st);
     if (hd == 128)
       return launch_wgmma<128>(q, k, v, o, b, h, kvh, sq, sk, qs, ks, vs, os,
-                               scale, causal, window, st);
+                               scale, causal, window, lse_f, st);
     if (hd == 256)
       return launch_wgmma<256>(q, k, v, o, b, h, kvh, sq, sk, qs, ks, vs, os,
-                               scale, causal, window, st);
+                               scale, causal, window, lse_f, st);
     return cudaErrorInvalidValue;
   }
-  if (route != 0) return cudaErrorInvalidValue;
+  if (route != 0 || lse != nullptr) return cudaErrorInvalidValue;
   if (dtype == 0)
     return dispatch<float>(hd, q, k, v, o, b, h, sq, sk, group, qs, ks, vs,
                            os, scale, causal, window, st);

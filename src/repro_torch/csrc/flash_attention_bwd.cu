@@ -17,14 +17,21 @@
 //   dK_j  = scale * sum_i dS_ij q_i   (over the group's query heads too),
 //   dV_j  = sum_i P_ij dO_i.
 //
-// Design (simple and right first; every product on the f32 FMA units, f32
-// accumulation whatever the input type, outputs in the input type):
+// Two routes share the entry point flash_attention_bwd_launch, and the
+// caller names the route: "wgmma" (bf16 at head dims 64 and 128, with or
+// without a window: three kernels on the tensor cores that read the
+// forward's log-sum-exp; see flash_attention_bwd_wgmma.cuh) and "fma"
+// (below: f32 at every head dim, bf16 at 16, 32 and 256).
+//
+// The FMA route's design (simple and right first; every product on the f32
+// FMA units, f32 accumulation whatever the input type, outputs in the
+// input type):
 //   * the row pass, one 256-thread block per (query tile, h, b): each
 //     query row recomputes its softmax's max m_i and sum l_i over the keys
 //     it sees (a row that sees no key gets m = NEG_INF and l = Sk, the
 //     plain version's uniform row) and D_i, into f32 scratch [3, B, H, Sq]
-//     that the wrapper allocates (the forward stays as it is and emits no
-//     log-sum-exp);
+//     that the wrapper allocates (this route takes no log-sum-exp from the
+//     forward);
 //   * the dK/dV kernel, one block per (key tile, KV head, b): each key row
 //     keeps k_j, v_j, dK_j and dV_j in registers and loops over the
 //     group's query heads and over the query tiles that see the key tile
@@ -44,21 +51,25 @@
 // Bound: operations.  Five products of hd per unmasked (query, key) pair
 // and head (S, dP, dV, dK, dQ; 10*hd flops), at the bf16 tensor rate in
 // bf16; at smollm-135m's training shape (B 4, H 9, KV 3, S 4096, hd 64,
-// causal) 1.93e11 flops, 0.195 ms at 989 TFLOP/s.  This kernel recomputes
-// S three times and dP twice (16*hd flops a pair) on the FMA units, far
-// from that bound: making it fast is a redesign's work.
+// causal) 1.93e11 flops, 0.195 ms at 989 TFLOP/s.  The FMA route
+// recomputes S three times and dP twice (16*hd flops a pair) on the FMA
+// units, far from that bound; the wgmma route runs 7 products of hd a
+// pair on the tensor cores.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "flash_attention_bwd_wgmma.cuh"
 
 namespace {
 
 constexpr float kNegInf = -1e30f;   // the reference's NEG_INF, not -inf
 constexpr int kThreads = 256;       // threads per block
 
-struct Strides {
-  int64_t b, s, h;   // element strides along batch, sequence and head
-};
+// element strides along batch, sequence and head
+using fa_wgmma::Strides;
 
 // Tile shapes at head dim HD: threads per row, rows a block owns (query
 // rows in the row pass and dQ, key rows in dK/dV), rows of the streamed
@@ -439,32 +450,59 @@ cudaError_t launch_window(const Args& a, cudaStream_t stream) {
                       : launch<T, HD, false>(a, stream);
 }
 
+// f32 at every head dim, bf16 at 16, 32 and 256 (bf16 at 64 and 128 is
+// the wgmma route's).
 template <typename T>
 cudaError_t dispatch(int hd, const Args& a, cudaStream_t stream) {
   switch (hd) {
     case 16: return launch_window<T, 16>(a, stream);
     case 32: return launch_window<T, 32>(a, stream);
-    case 64: return launch_window<T, 64>(a, stream);
-    case 128: return launch_window<T, 128>(a, stream);
     case 256: return launch_window<T, 256>(a, stream);
   }
+  if constexpr (std::is_same_v<T, float>) {
+    switch (hd) {
+      case 64: return launch_window<T, 64>(a, stream);
+      case 128: return launch_window<T, 128>(a, stream);
+    }
+  }
   return cudaErrorInvalidValue;
+}
+
+// The wgmma route at head dim HD, with the window compiled in or out.
+template <int HD, bool kWindow>
+cudaError_t run_wgmma(const Args& a, const float* lse, cudaStream_t stream) {
+  return fa_bwd_wgmma::launch<HD, kWindow>(
+      a.q, a.k, a.v, a.o, a.dout, a.dq, a.dk, a.dv, a.stats, lse, a.b, a.h,
+      a.kvh, a.sq, a.sk, a.qs, a.ks, a.vs, a.os, a.dos, a.dqs, a.dks, a.dvs,
+      a.scale, a.causal, a.window, stream);
+}
+
+template <int HD>
+cudaError_t launch_wgmma(const Args& a, const float* lse,
+                         cudaStream_t stream) {
+  return a.window > 0 ? run_wgmma<HD, true>(a, lse, stream)
+                      : run_wgmma<HD, false>(a, lse, stream);
 }
 
 }  // namespace
 
 // q [B,H,Sq,hd], k/v [B,KV,Sk,hd], o and dout [B,H,Sq,hd] (the forward's
 // output and its gradient), dq [B,H,Sq,hd], dk/dv [B,KV,Sk,hd], each given
-// as element strides (batch, seq, head) with the head dim contiguous; stats
-// f32 scratch of 3*B*H*Sq; window 0 = none; dtype 0 = f32, 1 = bf16 (every
-// tensor but stats alike).  Launches the row pass, then dK/dV, then dQ, on
-// the stream; returns the first launch's error (cudaErrorInvalidValue for
-// a head dim other than 16, 32, 64, 128 and 256).
+// as element strides (batch, seq, head) with the head dim contiguous;
+// window 0 = none; dtype 0 = f32, 1 = bf16 (every tensor but stats and lse
+// alike); route 0 = the FMA kernels (f32 at hd 16, 32, 64, 128 or 256,
+// bf16 at 16, 32 or 256; stats f32 scratch of 3*B*H*Sq; lse null), 1 = the
+// wgmma kernels (bf16 at hd 64 or 128; lse the forward's f32 [B,H,Sq]
+// contiguous; stats f32 scratch of 2*B*H*Sq_pad, Sq_pad = Sq rounded up to
+// 128; every stride of a dim longer than 1 and every base 16-byte aligned).
+// Launches the route's kernels on the stream; returns the first launch's
+// error (cudaErrorInvalidValue for arguments the route does not take).
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
-    const void* dout, void* dq, void* dk, void* dv, void* stats, int b,
-    int h, int kvh, int sq, int sk, int hd, const int64_t* strides,
-    float scale, int causal, int window, int dtype, void* stream) {
+    const void* dout, void* dq, void* dk, void* dv, void* stats,
+    const void* lse, int b, int h, int kvh, int sq, int sk, int hd,
+    const int64_t* strides, float scale, int causal, int window, int dtype,
+    int route, void* stream) {
   if (window < 0 || kvh <= 0 || h % kvh) return cudaErrorInvalidValue;
   Args a;
   a.q = q; a.k = k; a.v = v; a.o = o; a.dout = dout;
@@ -479,6 +517,14 @@ extern "C" int flash_attention_bwd_launch(
   a.causal = causal;
   a.window = window;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (route == 1) {
+    const float* lse_f = static_cast<const float*>(lse);
+    if (dtype != 1 || lse_f == nullptr) return cudaErrorInvalidValue;
+    if (hd == 64) return launch_wgmma<64>(a, lse_f, st);
+    if (hd == 128) return launch_wgmma<128>(a, lse_f, st);
+    return cudaErrorInvalidValue;
+  }
+  if (route != 0 || lse != nullptr) return cudaErrorInvalidValue;
   if (dtype == 0) return dispatch<float>(hd, a, st);
   if (dtype == 1) return dispatch<__nv_bfloat16>(hd, a, st);
   return cudaErrorInvalidValue;

@@ -63,7 +63,14 @@
 //     product is exact, so such a row gets p = 1 a key, and the epilogue
 //     divides its sum by Sk (the zero-filled keys past Sk add 0 to O);
 //   * the epilogue divides by l and stores bf16 pairs through the output's
-//     strides, so the model layout [B,S,H,hd] needs no copy.
+//     strides, so the model layout [B,S,H,hd] needs no copy;
+//   * when a gradient is wanted (the kLse template flag, at hd 64 and 128)
+//     the epilogue also writes each row's log-sum-exp of its scaled logits,
+//     lse = scale m + log l, into f32 [B, H, Sq] for the backward
+//     (flash_attention_bwd_wgmma.cuh); a row that sees no key gets NEG_INF,
+//     as the reference's logsumexp over NEG_INF logits gives (log Sk is far
+//     below one ulp of 2^100, so the backward recognises such a row from
+//     its index).  Without the flag the code is the flagless kernel's.
 #pragma once
 
 #include <cuda.h>
@@ -85,6 +92,7 @@ constexpr float kNegInf = -1e30f;   // the reference's NEG_INF, not -inf
 // with -1e30.
 constexpr float kMasked = -0x1p100f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kBQ = 128;            // query rows per block
 constexpr int kConsumerWarps = 8;   // two warpgroups
 // and a producer warpgroup, of which one thread starts the loads: the
@@ -532,13 +540,13 @@ __device__ __forceinline__ void release(uint64_t* bar, int lane) {
 // step starts S = Q.K_n^T and O += P_{n-1}.V_{n-1} together (in its turn),
 // waits for S only, and runs the softmax of tile n while P.V is on the
 // tensor cores.
-template <int HD, bool kWindow>
+template <int HD, bool kWindow, bool kLse>
 __device__ __forceinline__ void consume(Smem<HD>& sm, __nv_bfloat16* o,
                                         int sq, int sk, Strides os,
                                         float scale_log2, int causal,
                                         int window, int n_items, int heads,
                                         int batch, int n_qt, int warp,
-                                        int lane) {
+                                        int lane, float* lse) {
   constexpr int kBK = Smem<HD>::kBK;
   constexpr int kStages = Smem<HD>::kStages;
   constexpr float kMask = kWindow ? kMasked : kNegInf;
@@ -634,6 +642,14 @@ __device__ __forceinline__ void consume(Smem<HD>& sm, __nv_bfloat16* o,
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
       if (kWindow && m[r] == kMask) l[r] = static_cast<float>(sk);
+      if constexpr (kLse) {
+        // the quad's first thread writes the row's lse
+        if ((lane & 3) == 0 && qi[r] < sq)
+          lse[(static_cast<int64_t>(it.b) * heads + it.h) * sq + qi[r]] =
+              kWindow && m[r] == kMask
+                  ? kNegInf
+                  : (m[r] * scale_log2 + log2f(l[r])) * kLn2;
+      }
       l[r] = 1.f / fmaxf(l[r], 1e-30f);
     }
 #pragma unroll
@@ -656,14 +672,16 @@ __device__ __forceinline__ void consume(Smem<HD>& sm, __nv_bfloat16* o,
 constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;
 
-template <int HD, bool kWindow>
+// lse comes last, so the flagless kernel's other parameters keep their
+// offsets (and its code its bits).
+template <int HD, bool kWindow, bool kLse>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                    const __grid_constant__ CUtensorMap k_map,
                    const __grid_constant__ CUtensorMap v_map,
                    __nv_bfloat16* __restrict__ o, int sq, int sk, int heads,
                    int batch, int group, Strides os, float scale_log2,
-                   int causal, int window) {
+                   int causal, int window, float* __restrict__ lse) {
   static_assert(HD == 64 || HD == 128 || HD == 256,
                 "head dim 64, 128 or 256");
   constexpr int kStages = Smem<HD>::kStages;
@@ -698,8 +716,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
         kConsumerRegs));
-    consume<HD, kWindow>(sm, o, sq, sk, os, scale_log2, causal, window,
-                         n_items, heads, batch, n_qt, warp, lane);
+    consume<HD, kWindow, kLse>(sm, o, sq, sk, os, scale_log2, causal,
+                               window, n_items, heads, batch, n_qt, warp,
+                               lane, lse);
   }
 }
 
@@ -728,12 +747,13 @@ inline bool make_map(CUtensorMap* map, const void* ptr, int batch, int heads,
 
 // Encode the maps (passed by value, so a captured CUDA graph keeps them),
 // raise the kernel's shared-memory limit once, launch.  Returns the
-// launch's cudaError_t; a refused map is cudaErrorInvalidValue.
-template <int HD, bool kWindow>
+// launch's cudaError_t; a refused map is cudaErrorInvalidValue.  lse is
+// f32 [B, H, Sq] when kLse, else unused.
+template <int HD, bool kWindow, bool kLse>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int b, int h, int kvh, int sq, int sk, Strides qs,
                    Strides ks, Strides vs, Strides os, float scale,
-                   int causal, int window, cudaStream_t stream) {
+                   int causal, int window, float* lse, cudaStream_t stream) {
   constexpr int kBK = Smem<HD>::kBK;
   CUtensorMap qm, km, vm;
   if (!make_map(&qm, q, b, h, sq, HD, qs, kBQ) ||
@@ -750,7 +770,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   if (err != cudaSuccess) return err;
   if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
   if (!configured[dev]) {
-    err = cudaFuncSetAttribute(flash_wgmma_kernel<HD, kWindow>,
+    err = cudaFuncSetAttribute(flash_wgmma_kernel<HD, kWindow, kLse>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err == cudaSuccess)
@@ -765,9 +785,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   // persistent: one block per SM (at most one per item)
   const int grid =
       static_cast<int>(n_items < n_sms[dev] ? n_items : n_sms[dev]);
-  flash_wgmma_kernel<HD, kWindow><<<grid, kThreads, smem, stream>>>(
+  flash_wgmma_kernel<HD, kWindow, kLse><<<grid, kThreads, smem, stream>>>(
       qm, km, vm, static_cast<__nv_bfloat16*>(o), sq, sk, h, b, h / kvh, os,
-      scale * kLog2e, causal, window);
+      scale * kLog2e, causal, window, lse);
   return cudaGetLastError();
 }
 

@@ -64,6 +64,18 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// `bytes` contiguous bytes into shared memory, completing on `bar` (both
+// addresses 16-byte aligned, bytes a multiple of 16).
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(static_cast<uint64_t>(__cvta_generic_to_global(src))), "r"(bytes),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
 // cuTensorMapEncodeTiled, fetched with cudaGetDriverEntryPoint so a
 // library links against nothing but the CUDA runtime.
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,

@@ -57,15 +57,43 @@ tensor it launches the route's kernel or raises: no route is taken on
 failure.  ``flash_attention.launches`` counts kernel launches,
 ``launches_wgmma`` and ``launches_fma`` each route's.
 
+With ``lse=`` (f32 [B, H, Sq]) the ``wgmma`` route at hd 64 and 128 also
+writes each row's log-sum-exp of its scaled logits (a template flag of
+the kernel, so a call without it runs the flagless code): the input of
+the backward's ``wgmma`` route (for a CPU tensor
+:func:`~repro_torch.kernels.flash_attention.ref.attention_lse_ref`).
+
 :func:`flash_attention_bwd` is the gradient, dQ, dK and dV
 (``csrc/flash_attention_bwd.cu``; the TPU kernel has no backward, and the
-reference differentiates its jnp attention): a row pass recomputes each
-query row's softmax max and sum and D = dO·o into f32 scratch, then one
-kernel sums dK and dV a key tile at a time over the group's query heads,
-and one sums dQ a query tile at a time, on the f32 FMA units.
+reference differentiates its jnp attention).  Two routes, picked by
+:func:`_bwd_route` from the dtype and the head dim, no window changing it:
+
+  ===========================  =========  =====================================
+  dtype, head dim              route      kernels
+  ===========================  =========  =====================================
+  bf16 at hd 64 and 128        ``wgmma``  ``csrc/flash_attention_bwd_wgmma.cuh``
+  f32 at every hd; bf16 at     ``fma``    ``csrc/flash_attention_bwd.cu``
+  hd 16, 32 and 256
+  ===========================  =========  =====================================
+
+- ``"wgmma"`` takes the forward's ``lse`` (required): a row pass writes
+  D = dO·o and lse·log2(e) into f32 scratch padded to 128 rows, then one
+  kernel a 128-key tile (two consumer warpgroups of 64 keys, a TMA
+  producer ringing 64-row Q and dO tiles of each query head of the group)
+  runs Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ, then dV += Pᵀ·dO and dK += dSᵀ·Q on
+  ``wgmma``, and one kernel a 128-row query tile runs S, dP and
+  dQ += dS·K, the forward's shape with one more product.  Seven products
+  of hd a pair and no atomics: each output row is written by one block.
+- ``"fma"`` recomputes each row's softmax max and sum and D in a row pass,
+  then sums dK and dV a key tile at a time over the group's query heads
+  and dQ a query tile at a time, on the f32 FMA units (f32 within 2e-5).
+
 ``flash_attention_bwd.launches`` counts its calls (three CUDA kernels
-each).  For a CPU tensor it runs the plain version
-(:func:`repro_torch.kernels.flash_attention.ref.attention_bwd_ref`).
+each), ``launches_wgmma`` and ``launches_fma`` each route's.  For a CPU
+tensor it runs the route's plain version
+(:func:`~repro_torch.kernels.flash_attention.ref.attention_bwd_lse_ref`
+on ``wgmma``, :func:`~repro_torch.kernels.flash_attention.ref.
+attention_bwd_ref` on ``fma``).
 """
 from __future__ import annotations
 
@@ -74,21 +102,30 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build, check_tma
-from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+from repro_torch.kernels.flash_attention.ref import (attention_bwd_lse_ref,
+                                                      attention_bwd_ref,
+                                                      attention_lse_ref,
                                                       attention_ref)
 
 #: Head dims the wrapper takes (f32 runs each on the ``fma`` route).
 HEAD_DIMS = (16, 32, 64, 128, 256)
 #: Head dims of the ``wgmma`` route (bf16 only, with or without a window).
 WGMMA_HEAD_DIMS = (64, 128, 256)
+#: Head dims of the backward's ``wgmma`` route (bf16 only), where the
+#: forward writes its log-sum-exp.
+BWD_WGMMA_HEAD_DIMS = (64, 128)
+#: Rows of the backward ``wgmma`` route's scratch are Sq rounded up to this
+#: (``kPad`` of ``csrc/flash_attention_bwd_wgmma.cuh``, whose kernels read
+#: whole 64- and 128-row tiles of it).
+BWD_ROW_PAD = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ROUTES = {"fma": 0, "wgmma": 1}
 
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
              + [ctypes.c_int64] * 12
              + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
-                 + [ctypes.c_void_p, ctypes.c_float] + [ctypes.c_int] * 3
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+                 + [ctypes.c_void_p, ctypes.c_float] + [ctypes.c_int] * 4
                  + [ctypes.c_void_p])
 
 
@@ -100,6 +137,30 @@ def _route(dtype: torch.dtype, hd: int, window: int = 0) -> str:
     if dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS:
         return "wgmma"
     return "fma"
+
+
+def _bwd_route(dtype: torch.dtype, hd: int, window: int = 0) -> str:
+    """The kernels a CUDA call of :func:`flash_attention_bwd` takes:
+    ``"wgmma"`` for bf16 at hd 64 and 128, with or without a window;
+    ``"fma"`` otherwise (f32 stays on the FMA units, within 2e-5; bf16 at
+    hd 256 needs 256 registers a thread for dK and dV alone).  ``window``
+    does not change the route."""
+    del window
+    if dtype == torch.bfloat16 and hd in BWD_WGMMA_HEAD_DIMS:
+        return "wgmma"
+    return "fma"
+
+
+def _check_lse(lse: torch.Tensor, q: torch.Tensor) -> None:
+    """Raise unless ``lse`` is f32 [B, H, Sq], contiguous, on q's device."""
+    b, h, sq, _ = q.shape
+    if lse.dtype != torch.float32 or tuple(lse.shape) != (b, h, sq):
+        raise ValueError(f"lse must be float32 {(b, h, sq)}, got {lse.dtype} "
+                         f"{tuple(lse.shape)}")
+    if lse.device != q.device:
+        raise ValueError(f"lse is on {lse.device}, q on {q.device}")
+    if not lse.is_contiguous():
+        raise ValueError("lse must be contiguous")
 
 
 def _lib() -> ctypes.CDLL:
@@ -162,14 +223,25 @@ def _strides(t: torch.Tensor) -> list[int]:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
-                    out: torch.Tensor | None = None) -> torch.Tensor:
+                    out: torch.Tensor | None = None,
+                    lse: torch.Tensor | None = None) -> torch.Tensor:
     """q: [B, H, Sq, hd]; k, v: [B, KV, Sk, hd] -> [B, H, Sq, hd] in q's
     dtype, written into ``out`` when given.  Any strides with the head
-    dim contiguous.  ``window`` 0 is none."""
+    dim contiguous.  ``window`` 0 is none.  ``lse``, f32 [B, H, Sq]
+    contiguous, receives each row's log-sum-exp where the backward's
+    ``wgmma`` route reads it (bf16 at hd 64 and 128)."""
     _check(q, k, v, out, window)
+    if lse is not None:
+        if _bwd_route(q.dtype, q.shape[3], window) != "wgmma":
+            raise ValueError("lse is written only for the backward's wgmma "
+                             "route: bf16 at head dims "
+                             f"{BWD_WGMMA_HEAD_DIMS}")
+        _check_lse(lse, q)
     dev = q.device
     if dev.type == "cpu":
         o = attention_ref(q, k, v, causal=causal, window=window)
+        if lse is not None:
+            lse.copy_(attention_lse_ref(q, k, causal=causal, window=window))
         return o if out is None else out.copy_(o)
     if dev.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu or cuda, not {dev}")
@@ -187,6 +259,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _lib().flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(),
         b, h, kvh, sq, sk, hd, *strides, hd ** -0.5, int(causal), window,
         _DTYPES[q.dtype], _ROUTES[route], stream)
     if rc != 0:
@@ -208,17 +281,32 @@ flash_attention.launches_fma = 0
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, do: torch.Tensor, *,
                         causal: bool = True, window: int = 0,
-                        grads: tuple | None = None) -> tuple:
+                        grads: tuple | None = None,
+                        lse: torch.Tensor | None = None) -> tuple:
     """The gradient of :func:`flash_attention`: q, o, do [B, H, Sq, hd];
     k, v [B, KV, Sk, hd]; o the forward's output and do its gradient ->
     (dq, dk, dv) in q's dtype, written into ``grads`` (three tensors of
     q's, k's and v's shapes) when given.  Any strides with the head dim
-    contiguous."""
+    contiguous.  ``lse`` is the forward's log-sum-exp (f32 [B, H, Sq]):
+    required on the ``wgmma`` route, refused on the ``fma`` route."""
     _check(q, k, v, o, window)
     _check(q, k, v, do, window)
+    route = _bwd_route(q.dtype, q.shape[3], window)
+    if route == "wgmma":
+        if lse is None:
+            raise ValueError("the backward's wgmma route (bf16 at head dims "
+                             f"{BWD_WGMMA_HEAD_DIMS}) needs the forward's lse")
+        _check_lse(lse, q)
+    elif lse is not None:
+        raise ValueError("the backward's fma route takes no lse")
     dev = q.device
     if dev.type == "cpu":
-        got = attention_bwd_ref(q, k, v, do, causal=causal, window=window)
+        if route == "wgmma":
+            got = attention_bwd_lse_ref(q, k, v, o, do, lse, causal=causal,
+                                        window=window)
+        else:
+            got = attention_bwd_ref(q, k, v, do, causal=causal,
+                                    window=window)
         if grads is None:
             return got
         return tuple(g.copy_(x) for g, x in zip(grads, got))
@@ -239,20 +327,34 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         for g in grads:
             g.zero_()
         return grads
-    stats = torch.empty((3, b, h, sq), dtype=torch.float32, device=dev)
+    tensors = (q, k, v, o, do, *grads)
+    if route == "wgmma":
+        check_tma(zip(("q", "k", "v", "o", "do", "dq", "dk", "dv"), tensors))
+        sq_pad = -(-sq // BWD_ROW_PAD) * BWD_ROW_PAD
+        stats = torch.empty((2, b, h, sq_pad), dtype=torch.float32,
+                            device=dev)
+    else:
+        stats = torch.empty((3, b, h, sq), dtype=torch.float32, device=dev)
     strides = (ctypes.c_int64 * 24)(*[
-        st for t in (q, k, v, o, do, *grads) for st in _strides(t)])
+        st for t in tensors for st in _strides(t)])
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _bwd_lib().flash_attention_bwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         do.data_ptr(), *(g.data_ptr() for g in grads), stats.data_ptr(),
+        None if lse is None else lse.data_ptr(),
         b, h, kvh, sq, sk, hd, strides, hd ** -0.5, int(causal), window,
-        _DTYPES[q.dtype], stream)
+        _DTYPES[q.dtype], _ROUTES[route], stream)
     if rc != 0:
-        raise RuntimeError(f"flash_attention_bwd launch failed: CUDA error "
-                           f"{rc}")
+        raise RuntimeError(f"flash_attention_bwd launch failed on the "
+                           f"{route} route: CUDA error {rc}")
     flash_attention_bwd.launches += 1
+    if route == "wgmma":
+        flash_attention_bwd.launches_wgmma += 1
+    else:
+        flash_attention_bwd.launches_fma += 1
     return grads
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.launches_wgmma = 0
+flash_attention_bwd.launches_fma = 0

@@ -60,3 +60,11 @@ def test_the_flash_library_covers_its_header():
 def test_the_wkv6_library_covers_the_tma_header():
     names = [p.name for p in build._sources("wkv6")]
     assert names == ["wkv6.cu", "tma.cuh"]
+
+
+def test_the_flash_bwd_library_covers_the_wgmma_headers():
+    """The backward's wgmma header, the forward's wgmma header it builds
+    on (descriptors, products, tensor maps) and the TMA header."""
+    names = [p.name for p in build._sources("flash_attention_bwd")]
+    assert names == ["flash_attention_bwd.cu", "flash_attention_bwd_wgmma.cuh",
+                     "flash_attention_wgmma.cuh", "tma.cuh"]

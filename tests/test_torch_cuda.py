@@ -634,7 +634,11 @@ def test_sharded_mesh_on_the_card_matches_cpu():
 
 # (B, H, KV, Sq, Sk, hd, causal, window, dtype): f32 at 2e-5, bf16 at 4e-2
 # absolute plus 2e-2 relative (both sides round dq, dk, dv to bf16; the
-# kernel's D = dO.o reads the forward's bf16 o)
+# kernel's D = dO.o reads the forward's bf16 o, and the wgmma route rounds
+# P and dS to bf16 for the tensor cores).  bf16 at hd 64 and 128 takes the
+# wgmma route: causal and full, GQA groups 1, 2, 3 and 4, ragged Sq and Sk
+# with Sq != Sk both ways, window edges inside a tile, and rows that see
+# no key (Sq 300 > Sk 100 + window 40)
 BWD_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (4e-2, 2e-2)}
 FLASH_BWD_CASES = [(2, 4, 2, 64, 64, 64, True, 0, "float32"),
                    (1, 2, 1, 100, 37, 16, False, 0, "float32"),
@@ -643,33 +647,61 @@ FLASH_BWD_CASES = [(2, 4, 2, 64, 64, 64, True, 0, "float32"),
                    (2, 4, 2, 77, 200, 32, False, 0, "float32"),
                    (2, 4, 2, 256, 256, 64, True, 0, "bfloat16"),
                    (1, 2, 1, 200, 120, 256, True, 64, "bfloat16"),
-                   (1, 6, 3, 130, 130, 16, False, 0, "bfloat16")]
+                   (1, 6, 3, 130, 130, 16, False, 0, "bfloat16"),
+                   (1, 3, 3, 77, 77, 64, False, 0, "bfloat16"),
+                   (2, 9, 3, 300, 300, 64, True, 0, "bfloat16"),
+                   (1, 8, 2, 190, 333, 128, True, 0, "bfloat16"),
+                   (1, 4, 1, 333, 190, 128, False, 0, "bfloat16"),
+                   (1, 6, 2, 260, 260, 64, True, 100, "bfloat16"),
+                   (1, 2, 1, 150, 200, 64, False, 50, "bfloat16"),
+                   (1, 4, 1, 300, 100, 64, True, 40, "bfloat16"),
+                   (1, 4, 4, 300, 100, 128, True, 40, "bfloat16")]
+
+
+def bwd_route_counts(flash_attention_bwd):
+    return (flash_attention_bwd.launches, flash_attention_bwd.launches_wgmma,
+            flash_attention_bwd.launches_fma)
 
 
 @pytest.mark.parametrize("b,h,kv,sq,sk,hd,causal,window,dtype",
                          FLASH_BWD_CASES)
 def test_flash_attention_bwd_kernel_matches_plain_version(
         b, h, kv, sq, sk, hd, causal, window, dtype):
-    from repro_torch.kernels.flash_attention.kernel import \
-        flash_attention_bwd
-    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+    """Each route's kernels against the plain version's autograd, the
+    same bits on a rerun, the call counted on its route; on the wgmma
+    route the forward's lse against attention_lse_ref (1e-4 absolute plus
+    1e-5 relative: f32 sums of ex2.approx terms in another order)."""
+    from repro_torch.kernels.flash_attention.kernel import (
+        _bwd_route, flash_attention_bwd)
+    from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                         attention_lse_ref)
     rng = np.random.default_rng(sq * 31 + sk + hd)
     q, k, v, do = (torch.from_numpy(rng.standard_normal(s).astype(
         np.float32)).to(getattr(torch, dtype)).cuda()
         for s in ((b, h, sq, hd), (b, kv, sk, hd), (b, kv, sk, hd),
                   (b, h, sq, hd)))
     kw = dict(causal=causal, window=window)
-    o = flash_attention(q, k, v, **kw)
-    n0 = flash_attention_bwd.launches
-    got = flash_attention_bwd(q, k, v, o, do, **kw)
-    again = flash_attention_bwd(q, k, v, o, do, **kw)
+    route = _bwd_route(q.dtype, hd, window)
+    lse = None
+    if route == "wgmma":
+        lse = torch.empty((b, h, sq), dtype=torch.float32, device="cuda")
+    o = flash_attention(q, k, v, lse=lse, **kw)
+    n0 = bwd_route_counts(flash_attention_bwd)
+    got = flash_attention_bwd(q, k, v, o, do, lse=lse, **kw)
+    again = flash_attention_bwd(q, k, v, o, do, lse=lse, **kw)
     want = attention_bwd_ref(q, k, v, do, **kw)
     torch.cuda.synchronize()
-    assert flash_attention_bwd.launches == n0 + 2
+    assert bwd_route_counts(flash_attention_bwd) == (
+        n0[0] + 2, n0[1] + 2 * (route == "wgmma"),
+        n0[2] + 2 * (route == "fma"))
+    assert route == ("wgmma" if dtype == "bfloat16" and hd in (64, 128)
+                     else "fma")
     for g, a, w in zip(got, again, want):
         assert g.dtype == q.dtype
         assert torch.equal(g, a)                  # no atomics
         close(g, w, *BWD_TOL[dtype])
+    if lse is not None:
+        close(lse, attention_lse_ref(q, k, **kw), 1e-4, 1e-5)
 
 
 def test_flash_attention_autograd_runs_the_backward_kernel():
@@ -693,6 +725,36 @@ def test_flash_attention_autograd_runs_the_backward_kernel():
         grads[dev] = [x.grad.cpu() for x in leaves]
     for g, w in zip(grads["cuda"], grads["cpu"]):
         close(g, w, 2e-5, 2e-5)
+
+
+def test_flash_attention_autograd_runs_the_wgmma_backward_kernels():
+    """bf16 at hd 64 through the model layout's autograd Function: one
+    forward launch (writing the lse) and one backward launch on the wgmma
+    route, against the plain version's autograd on the CPU in f32 at the
+    bf16 tolerance."""
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_bwd
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+    rng = np.random.default_rng(5)
+    host = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+            .to(torch.bfloat16)
+            for s in ((2, 150, 6, 64), (2, 150, 2, 64), (2, 150, 2, 64),
+                      (2, 150, 6, 64))]
+    leaves = [x.cuda().requires_grad_(True) for x in host[:3]]
+    n0 = (route_counts(), bwd_route_counts(flash_attention_bwd))
+    out = flash_sdpa(*leaves, causal=True)
+    (out.float() * host[3].cuda().float()).sum().backward()
+    torch.cuda.synchronize()
+    f0, b0 = n0
+    assert route_counts() == (f0[0] + 1, f0[1] + 1, f0[2])
+    assert bwd_route_counts(flash_attention_bwd) == (b0[0] + 1, b0[1] + 1,
+                                                     b0[2])
+    t = lambda x: x.transpose(1, 2)
+    want = attention_bwd_ref(*(t(x.float()) for x in host[:3]),
+                             t(host[3].float()), causal=True)
+    for x, w in zip(leaves, want):
+        assert x.grad.dtype == torch.bfloat16
+        close(t(x.grad), w, *BWD_TOL["bfloat16"])
 
 
 @pytest.mark.parametrize("b,h,t,n", [(2, 3, 1, 16), (2, 3, 15, 16),

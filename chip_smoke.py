@@ -111,16 +111,22 @@ differ from the counts above.
    profiled fifth step (the top kernels, the device's idle share); ``run``
    resumed from the checkpoint, whose step gives the fifth step's loss;
 15. train-rwkv6-1.6b — the same at 4 × 2048 tokens, K3's launches (24 and
-   24 a step).
+   24 a step);
+16. train-recurrentgemma-2b — the same at 1 × 4096 tokens with each
+   super-block rematerialised, K2's launches (16 forward, twice the 8
+   backward, a step, all on ``wgmma``), without the checkpoint's save,
+   restore and resume (the cells above show them bit for bit).
 
 Phase 3 also holds K2's and K3's backward kernels against their plain
 versions' autograd (f32 and bf16, Sq != Sk, rows that see no key; a rerun
 bit for bit; K2's backward on both of its routes: ``wgmma`` for bf16 at
-hd 64 and 128, from the forward's log-sum-exp, which is held against its
-plain version too, and ``fma`` for f32 and bf16 at hd 16, 32 and 256) and
-times them at smollm's and recurrentgemma's attention shapes and rwkv6's
-training shape, beside their bounds, the plain versions and SDPA's
-backward.
+hd 64, 128 and 256, from the forward's log-sum-exp, which is held against
+its plain version too, and ``fma`` for f32 and bf16 at hd 16 and 32) and
+times them at smollm's and recurrentgemma's attention shapes (the latter
+at batch 4 and at its training cell's batch 1) and rwkv6's training
+shape, beside their bounds, the plain versions and SDPA's backward
+(raising if recurrentgemma's windowed backward is slower than SDPA's with
+the mask).
 
 The line before the last is a JSON object with the kernels' numbers; the
 last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -2076,12 +2082,13 @@ def phase_wkv(torch, wkv6, wkv6_ref, wkv6_seq):
 # to bf16 on both sides (one step is 2^-8 to 2^-7 of a value, 0.03125 at
 # |g| 4-8), and the kernel's D = dO.o reads the forward's bf16 o where
 # the plain version's autograd keeps o in f32 (the wgmma route also
-# rounds P and dS to bf16 for the tensor cores); bf16 at hd 64 and 128
-# takes the wgmma route: causal and full, GQA groups 1 to 4, ragged Sq
-# and Sk both ways, window edges inside a tile and rows that see no key;
-# then the two timed shapes,
-# smollm-135m's training shape and recurrentgemma-2b's local attention,
-# which the plain version's [S, S] f32 gradient still fits at full size.
+# rounds P and dS to bf16 for the tensor cores); bf16 at hd 64, 128 and
+# 256 takes the wgmma route: causal and full, GQA groups 1 to 4 and 10,
+# ragged Sq and Sk both ways, window edges inside a tile and rows that see
+# no key (at hd 256 also Sq 200 > Sk 120 + window 64); then the timed
+# shapes, smollm-135m's training shape and recurrentgemma-2b's local
+# attention at batch 4 and at its training cell's batch 1, which the plain
+# version's [S, S] f32 gradient still fits at full size.
 _BF16_BWD = ("bfloat16", 4e-2, 2e-2)
 FLASH_BWD_CASES = [(2, 4, 2, 64, 64, 64, True, 0) + _F32,
                    (1, 2, 1, 100, 37, 16, False, 0) + _F32,
@@ -2103,12 +2110,18 @@ FLASH_BWD_CASES = [(2, 4, 2, 64, 64, 64, True, 0) + _F32,
                    (1, 6, 2, 260, 260, 64, True, 100) + _BF16_BWD,
                    (1, 2, 1, 150, 200, 64, False, 50) + _BF16_BWD,
                    (1, 4, 1, 300, 100, 64, True, 40) + _BF16_BWD,
-                   (1, 4, 4, 300, 100, 128, True, 40) + _BF16_BWD]
+                   (1, 4, 4, 300, 100, 128, True, 40) + _BF16_BWD,
+                   (1, 4, 2, 190, 333, 256, True, 0) + _BF16_BWD,
+                   (1, 3, 1, 333, 190, 256, False, 0) + _BF16_BWD,
+                   (2, 10, 1, 300, 300, 256, True, 100) + _BF16_BWD,
+                   (1, 6, 2, 130, 130, 256, False, 33) + _BF16_BWD,
+                   (1, 4, 4, 300, 100, 256, True, 40) + _BF16_BWD]
 # the forward's log-sum-exp (the wgmma route's input) against
 # attention_lse_ref: f32 sums of ex2.approx terms in another order
 LSE_TOL = (1e-4, 1e-5)
 FLASH_BWD_TIMED = [(4, 9, 3, 4096, 4096, 64, True, 0) + _BF16_BWD,
-                   (4, 10, 1, 4096, 4096, 256, True, 2048) + _BF16_BWD]
+                   (4, 10, 1, 4096, 4096, 256, True, 2048) + _BF16_BWD,
+                   (1, 10, 1, 4096, 4096, 256, True, 2048) + _BF16_BWD]
 # K3's backward (B, H, T, N), f32: its checkpoint chunks of 16 steps (1,
 # 15, 17, 33 and 67 steps), every head size, and rwkv6-1.6b's training
 # shape (T 2048, the train cell's), each gradient held within
@@ -2248,6 +2261,9 @@ def phase_flash_bwd(torch, flash_attention, flash_attention_bwd,
         lib_ms = both_ms - fwd_ms
         bound_ms, bound_by, pairs, n_ops, n_bytes = attention_bwd_bound(
             torch, b, h, kv, sq, sk, hd, causal, window, q.element_size())
+        if window and ms >= lib_ms:
+            raise AssertionError(f"{what}: {ms:.6f} ms, slower than SDPA's "
+                                 f"backward with the mask, {lib_ms:.6f} ms")
         log(f"kernel  {what} timed: device {ms:.6f} ms (CUDA graph of 5 "
             f"calls; three CUDA kernels a call); per eager call "
             f"{call_ms:.6f} ms; plain version (autograd of attention_ref) "
@@ -2265,9 +2281,11 @@ def phase_flash_bwd(torch, flash_attention, flash_attention_bwd,
             library_ms=lib_ms))
         del q, k, v, o, do, grads, leaves, lib_grads, mask, lse
         torch.cuda.empty_cache()
-    main, windowed = timed_numbers
+    main, windowed, windowed_train = timed_numbers
     main["max_abs_err"] = max_err
     main["windowed"] = windowed
+    # the shape train-recurrentgemma-2b's step gives the kernel
+    main["windowed_train"] = windowed_train
     return main
 
 
@@ -2469,10 +2487,19 @@ def phase_lm_parity_train(torch, get_reduced, registry, train, adamw,
 
 
 # the training cells at full width: (tag, config, batch, seq, the backward
-# kernel of the path, its launches a step); seq 4096 is the LM cells'
-# train_4k reduction (launch/shapes.py:29); rwkv6 at 2048
-TRAIN_CELLS = [("smollm", "smollm-135m", 4, 4096, "flash_attention_bwd", 30),
-               ("rwkv6", "rwkv6-1.6b", 4, 2048, "wkv6_bwd", 24)]
+# kernel of the path, its launches a step, whether the cell saves,
+# restores and resumes a checkpoint); seq 4096 is the LM cells' train_4k
+# reduction (launch/shapes.py:29); rwkv6 at 2048; recurrentgemma at batch
+# 1 (at batch 2 its 2.7 B weights, their f32 moments, the [8192, 256000]
+# logits' f32 loss and the unrematerialised tail blocks peak near the
+# card's 80 GB: scripts/train_cell.py), and without the checkpoint, which
+# the other cells show bit for bit (its bf16 weights and f32 moments are
+# ~27 GB: some 3 minutes at the rwkv6 cell's rate)
+TRAIN_CELLS = [("smollm", "smollm-135m", 4, 4096, "flash_attention_bwd", 30,
+                True),
+               ("rwkv6", "rwkv6-1.6b", 4, 2048, "wkv6_bwd", 24, True),
+               ("recurrentgemma", "recurrentgemma-2b", 1, 4096,
+                "flash_attention_bwd", 8, False)]
 
 
 def same_bits(torch, a, b) -> bool:
@@ -2544,15 +2571,22 @@ def phase_train(torch, get, registry, train, adamw, data, fa, fa_bwd, wkv,
     """A training cell at full width: ``launch/train.py::run`` for 4 steps
     (1 warm, 3 timed) with a checkpoint at step 4 (bf16 weights, f32
     moments, in the system temp directory, removed at the end); the
-    backward kernel's launches a step; tokens/s and the peak memory; the
+    forward and backward kernels' launches a step (the forward's twice the
+    backward's for Griffin, whose super-blocks are rematerialised);
+    tokens/s and the peak memory; the
     restored checkpoint == the live state bit for bit; a fifth step,
     profiled; then ``run`` resumed from the checkpoint, whose step must
-    give the fifth step's loss.  Returns the run's kernel launches by
-    kernel."""
+    give the fifth step's loss.  A cell whose last field is False saves no
+    checkpoint and skips the restore and the resume.  Returns the run's
+    kernel launches by kernel."""
     import tempfile
     from repro_torch.checkpoint import CheckpointManager
-    tag, name, b, s, bwd_name, per_step = cell
+    tag, name, b, s, bwd_name, per_step, ckpt = cell
     cfg = get(name)
+    # Griffin rematerialises each super-block (as the reference's
+    # jax.checkpoint): its attention's forward runs again in the backward
+    remat = cfg.family == "hybrid"
+    fwd_per_step = per_step * (2 if remat else 1)
     api = registry.build(cfg)
     opt = adamw.AdamWConfig(**TRAIN_OPT)
     steps = TRAIN_OPT["total_steps"]
@@ -2560,13 +2594,16 @@ def phase_train(torch, get, registry, train, adamw, data, fa, fa_bwd, wkv,
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     with tempfile.TemporaryDirectory(prefix=f"train_{tag}_") as ckdir:
-        tc = train.TrainConfig(steps=steps, log_every=1, ckpt_every=steps,
-                               keep=2, ckpt_dir=ckdir, opt=opt)
+        tc = train.TrainConfig(steps=steps, log_every=1,
+                               ckpt_every=steps if ckpt else 0, keep=2,
+                               ckpt_dir=ckdir, opt=opt)
         log(f"{tag:<7} {name}: {cfg.n_layers} layers, d {cfg.d_model}, "
             f"vocab {cfg.vocab}, {str(cfg.dtype)[6:]}; run() over {steps} "
-            f"steps at {b} x {s} tokens, AdamW {TRAIN_OPT}; checkpoint "
-            f"directory {ckdir}: "
-            f"{shutil.disk_usage(ckdir).free / 1e9:.1f} GB free on its disk")
+            f"steps at {b} x {s} tokens, AdamW {TRAIN_OPT}; "
+            + (f"checkpoint directory {ckdir}: "
+               f"{shutil.disk_usage(ckdir).free / 1e9:.1f} GB free on its "
+               "disk" if ckpt else "no checkpoint")
+            + ("; each super-block rematerialised" if remat else ""))
         reset_flash(fa)
         reset_backward(fa_bwd, wkv_bwd)
         wkv.launches = 0
@@ -2579,13 +2616,14 @@ def phase_train(torch, get, registry, train, adamw, data, fa, fa_bwd, wkv,
                     "flash_attention_bwd": fa_bwd.launches,
                     "wkv6": wkv.launches, "wkv6_bwd": wkv_bwd.launches}
         fwd_name = bwd_name[:-4]
-        want = {k: (steps * per_step if k in (fwd_name, bwd_name) else 0)
+        want = {k: steps * (fwd_per_step if k == fwd_name else
+                            per_step if k == bwd_name else 0)
                 for k in launches}
         if launches != want:
             raise AssertionError(f"{tag} train: kernel launches {launches}, "
                                  f"expected {want}")
         if fwd_name == "flash_attention":
-            expect_routes(fa, {"wgmma": steps * per_step, "fma": 0},
+            expect_routes(fa, {"wgmma": steps * fwd_per_step, "fma": 0},
                           f"{tag} train")
             # every backward launch on the tensor cores
             bwd = bwd_routes(fa_bwd)
@@ -2597,8 +2635,9 @@ def phase_train(torch, get, registry, train, adamw, data, fa, fa_bwd, wkv,
         if len(losses) != steps or not all(map(math.isfinite, losses)):
             raise AssertionError(f"{tag} train: losses {losses}")
         timed_s = sum(secs[1:])
-        log(f"{tag:<7} train {steps} steps in {run_s:.3f} s (run(), the "
-            f"checkpoint's save included): steps "
+        log(f"{tag:<7} train {steps} steps in {run_s:.3f} s (run()"
+            + (", the checkpoint's save included" if ckpt else "")
+            + "): steps "
             + ", ".join(f"{x:.3f}" for x in secs) + f" s; "
             f"{b * s * (steps - 1) / timed_s:.1f} tokens/s over the last "
             f"{steps - 1}; losses " + ", ".join(f"{x:.6f}" for x in losses)
@@ -2609,22 +2648,24 @@ def phase_train(torch, get, registry, train, adamw, data, fa, fa_bwd, wkv,
             + f"; max_memory_allocated {peak}")
         model, opt_state = out["params"], out["opt_state"]
         del out
-        # the checkpoint at the last step == the live state, bit for bit
-        mgr = CheckpointManager(ckdir)
-        t0 = time.perf_counter()
-        restored = mgr.restore(train.checkpoint_template(api, model), steps)
-        restore_s = time.perf_counter() - t0
-        n_leaves = restored_equals_live(torch, api, model, opt_state,
-                                        restored)
-        ck_bytes = sum(os.path.getsize(os.path.join(ckdir,
-                                                    f"step_{steps:08d}", f))
-                       for f in os.listdir(os.path.join(
-                           ckdir, f"step_{steps:08d}")))
-        del restored
-        log(f"{tag:<7} checkpoint step {steps}: {ck_bytes} bytes, restored "
-            f"to the host in {restore_s:.3f} s; all {n_leaves} leaves "
-            "(bf16 weights, f32 moments, the step) equal the live state bit "
-            "for bit")
+        if ckpt:
+            # the checkpoint at the last step == the live state, bit for
+            # bit
+            mgr = CheckpointManager(ckdir)
+            t0 = time.perf_counter()
+            restored = mgr.restore(train.checkpoint_template(api, model),
+                                   steps)
+            restore_s = time.perf_counter() - t0
+            n_leaves = restored_equals_live(torch, api, model, opt_state,
+                                            restored)
+            step_dir = os.path.join(ckdir, f"step_{steps:08d}")
+            ck_bytes = sum(os.path.getsize(os.path.join(step_dir, f))
+                           for f in os.listdir(step_dir))
+            del restored
+            log(f"{tag:<7} checkpoint step {steps}: {ck_bytes} bytes, "
+                f"restored to the host in {restore_s:.3f} s; all {n_leaves} "
+                "leaves (bf16 weights, f32 moments, the step) equal the live "
+                "state bit for bit")
         # the uninterrupted run's next step, profiled
         batch = {k: torch.as_tensor(v).cuda() for k, v in next(
             data.synthetic_batches(cfg, b, s, seed=0, skip=steps)).items()}
@@ -2638,6 +2679,11 @@ def phase_train(torch, get, registry, train, adamw, data, fa, fa_bwd, wkv,
         del model, opt_state, metrics, batch
         gc.collect()
         torch.cuda.empty_cache()
+        if not math.isfinite(next_loss):
+            raise AssertionError(f"{tag} train: step {steps + 1} loss "
+                                 f"{next_loss}")
+        if not ckpt:
+            return launches
         # resume from the checkpoint: run() restores it and takes step 5 on
         # the same batch
         out = train.run(api, dataclasses.replace(tc, steps=steps + 1),
@@ -3238,7 +3284,7 @@ def main(argv=None) -> int:
                                  *args))
     launches["flash_attention"] = sum(flash_paths["granite_prefill"].values())
 
-    # 13.-15. the training path: reduced models card == CPU, then the two
+    # 13.-16. the training path: reduced models card == CPU, then the three
     # full-width training cells
     gc.collect()
     torch.cuda.empty_cache()
@@ -3252,11 +3298,15 @@ def main(argv=None) -> int:
     wkv_paths = {"rwkv_forward": launches["wkv6"]}
     for cell in TRAIN_CELLS:
         tag, bwd_name = cell[0], cell[4]
+        gc.collect()
+        torch.cuda.empty_cache()
         run_launches = phase_train(
             torch, get, registry, train, adamw, data, flash_attention,
             flash_attention_bwd, wkv6, wkv6_bwd, cell)
         path = f"{tag}_train"
-        bwd_paths[bwd_name][path] = launches[bwd_name] = \
+        # a backward kernel's launches: over every training cell it runs in
+        bwd_paths[bwd_name][path] = run_launches[bwd_name]
+        launches[bwd_name] = launches.get(bwd_name, 0) + \
             run_launches[bwd_name]
         if bwd_name == "flash_attention_bwd":
             flash_paths[path] = {"wgmma": run_launches["flash_attention"],

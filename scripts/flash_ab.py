@@ -13,7 +13,9 @@ on the ``wgmma`` route and in f32 on the ``fma`` route, smollm-135m's in
 bf16), each on the device as a replayed CUDA graph; where the checkout's
 forward takes ``lse=``, smollm-135m's shape is timed again without and
 with it (the ``kLse`` instantiation, as a training step's forward runs
-it), in turns (without, with, with, without).  The first run of a
+it), in turns (without, with, with, without), and so is
+recurrentgemma-2b's local attention (B=4, H=10, KV=1, S=4096, hd=256,
+window 2048) where the checkout writes the lse at hd 256.  The first run of a
 checkout builds its libraries (the forward's and the backward's) and
 prints ptxas's lines for the ``fma`` kernels, and every run prints a
 digest of each ``wgmma`` kernel's SASS (``cuobjdump -sass``, addresses
@@ -42,6 +44,7 @@ import torch
 sys.path[:0] = [os.getcwd(), os.path.join(os.getcwd(), "src")]
 import chip_smoke
 from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention import kernel as K
 from repro_torch.kernels.flash_attention.kernel import _route, flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -79,26 +82,34 @@ for lib in libs:
               flush=True)
 chip_smoke.phase_flash(torch, flash_attention, attention_ref, _route)
 if "lse" in inspect.signature(flash_attention).parameters:
-    # smollm-135m's prefill shape without and with the lse, in turns
+    # smollm-135m's prefill shape (and recurrentgemma-2b's local attention
+    # where the lse is written at hd 256) without and with the lse, in turns
     gen = torch.Generator(device="cuda").manual_seed(12)
-    b, h, kv, s, hd = 4, 9, 3, 4096, 64
-    q, k, v = (torch.randn((b, n, s, hd), generator=gen, device="cuda")
-               .to(torch.bfloat16) for n in (h, kv, kv))
-    out = torch.empty_like(q)
-    lse = torch.empty((b, h, s), dtype=torch.float32, device="cuda")
-    runs = {False: [], True: []}
-    for with_lse in (False, True, True, False):
-        fn = lambda: flash_attention(q, k, v, causal=True, out=out,
-                                     lse=lse if with_lse else None)
-        runs[with_lse].append(chip_smoke.device_ms(torch, fn, reps=20,
-                                                   samples=5))
-    for with_lse, ms in runs.items():
-        print(f"lse timing B={b} H={h} KV={kv} S={s} hd={hd} bfloat16 causal "
-              f"(wgmma route, lse {'on' if with_lse else 'off'}): device "
-              + " ".join(f"{x:.6f}" for x in ms) + " ms (CUDA graph of 20 "
-              "calls, median of 5, each reading)", flush=True)
+    shapes = [(4, 9, 3, 4096, 64, 0)]
+    if 256 in getattr(K, "BWD_WGMMA_HEAD_DIMS", ()):
+        shapes.append((4, 10, 1, 4096, 256, 2048))
+    for b, h, kv, s, hd, window in shapes:
+        q, k, v = (torch.randn((b, n, s, hd), generator=gen, device="cuda")
+                   .to(torch.bfloat16) for n in (h, kv, kv))
+        out = torch.empty_like(q)
+        lse = torch.empty((b, h, s), dtype=torch.float32, device="cuda")
+        runs = {False: [], True: []}
+        for with_lse in (False, True, True, False):
+            fn = lambda: flash_attention(q, k, v, causal=True, out=out,
+                                         window=window,
+                                         lse=lse if with_lse else None)
+            runs[with_lse].append(chip_smoke.device_ms(torch, fn, reps=20,
+                                                       samples=5))
+        w = f" window={window}" if window else ""
+        for with_lse, ms in runs.items():
+            print(f"lse timing B={b} H={h} KV={kv} S={s} hd={hd}{w} bfloat16 "
+                  f"causal (wgmma route, lse {'on' if with_lse else 'off'}): "
+                  "device " + " ".join(f"{x:.6f}" for x in ms) + " ms (CUDA "
+                  "graph of 20 calls, median of 5, each reading)", flush=True)
+        del q, k, v, out, lse
 """
-_TIMED = re.compile(r"(B=\d+ H=\d+ KV=\d+ S=\d+ hd=\d+ \w+) causal "
+_TIMED = re.compile(r"(B=\d+ H=\d+ KV=\d+ S=\d+ hd=\d+(?: window=\d+)? "
+                    r"\w+) causal "
                     r"\((\w+ route(?:, lse o(?:n|ff))?)\): device "
                     r"([0-9.]+(?: [0-9.]+)*) ms")
 _SASS = re.compile(r"sass ((?:wgmma|bwd \w+) hd \d+(?: window)?(?: lse)?): "

@@ -270,7 +270,7 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
 }
 
 // The lse instantiations exist where the backward's wgmma route reads
-// them: hd 64 and 128.
+// them: hd 64, 128 and 256.
 template <int HD>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                          void* o, int b, int h, int kvh, int sq, int sk,
@@ -281,10 +281,8 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
     return launch_wgmma<HD, false>(q, k, v, o, b, h, kvh, sq, sk, qs, ks, vs,
                                    os, scale, causal, window, nullptr,
                                    stream);
-  if constexpr (HD == 64 || HD == 128)
-    return launch_wgmma<HD, true>(q, k, v, o, b, h, kvh, sq, sk, qs, ks, vs,
-                                  os, scale, causal, window, lse, stream);
-  return cudaErrorInvalidValue;
+  return launch_wgmma<HD, true>(q, k, v, o, b, h, kvh, sq, sk, qs, ks, vs,
+                                os, scale, causal, window, lse, stream);
 }
 
 }  // namespace
@@ -296,7 +294,7 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
 // 256, bf16 at 16 or 32), 1 = the wgmma kernel (bf16 at hd 64, 128 or 256,
 // every stride of a dim longer than 1 and every base 16-byte aligned);
 // lse null, or f32 [B,H,Sq] contiguous for each row's log-sum-exp (the
-// wgmma route at hd 64 and 128 only).  Returns the launch's cudaError_t; a
+// wgmma route only).  Returns the launch's cudaError_t; a
 // route that does not take the arguments is cudaErrorInvalidValue.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, void* lse, int b,

@@ -18,10 +18,10 @@
 //   dV_j  = sum_i P_ij dO_i.
 //
 // Two routes share the entry point flash_attention_bwd_launch, and the
-// caller names the route: "wgmma" (bf16 at head dims 64 and 128, with or
-// without a window: three kernels on the tensor cores that read the
+// caller names the route: "wgmma" (bf16 at head dims 64, 128 and 256, with
+// or without a window: three kernels on the tensor cores that read the
 // forward's log-sum-exp; see flash_attention_bwd_wgmma.cuh) and "fma"
-// (below: f32 at every head dim, bf16 at 16, 32 and 256).
+// (below: f32 at every head dim, bf16 at 16 and 32).
 //
 // The FMA route's design (simple and right first; every product on the f32
 // FMA units, f32 accumulation whatever the input type, outputs in the
@@ -450,19 +450,19 @@ cudaError_t launch_window(const Args& a, cudaStream_t stream) {
                       : launch<T, HD, false>(a, stream);
 }
 
-// f32 at every head dim, bf16 at 16, 32 and 256 (bf16 at 64 and 128 is
+// f32 at every head dim, bf16 at 16 and 32 (bf16 at 64, 128 and 256 is
 // the wgmma route's).
 template <typename T>
 cudaError_t dispatch(int hd, const Args& a, cudaStream_t stream) {
   switch (hd) {
     case 16: return launch_window<T, 16>(a, stream);
     case 32: return launch_window<T, 32>(a, stream);
-    case 256: return launch_window<T, 256>(a, stream);
   }
   if constexpr (std::is_same_v<T, float>) {
     switch (hd) {
       case 64: return launch_window<T, 64>(a, stream);
       case 128: return launch_window<T, 128>(a, stream);
+      case 256: return launch_window<T, 256>(a, stream);
     }
   }
   return cudaErrorInvalidValue;
@@ -491,8 +491,8 @@ cudaError_t launch_wgmma(const Args& a, const float* lse,
 // as element strides (batch, seq, head) with the head dim contiguous;
 // window 0 = none; dtype 0 = f32, 1 = bf16 (every tensor but stats and lse
 // alike); route 0 = the FMA kernels (f32 at hd 16, 32, 64, 128 or 256,
-// bf16 at 16, 32 or 256; stats f32 scratch of 3*B*H*Sq; lse null), 1 = the
-// wgmma kernels (bf16 at hd 64 or 128; lse the forward's f32 [B,H,Sq]
+// bf16 at 16 or 32; stats f32 scratch of 3*B*H*Sq; lse null), 1 = the
+// wgmma kernels (bf16 at hd 64, 128 or 256; lse the forward's f32 [B,H,Sq]
 // contiguous; stats f32 scratch of 2*B*H*Sq_pad, Sq_pad = Sq rounded up to
 // 128; every stride of a dim longer than 1 and every base 16-byte aligned).
 // Launches the route's kernels on the stream; returns the first launch's
@@ -522,6 +522,7 @@ extern "C" int flash_attention_bwd_launch(
     if (dtype != 1 || lse_f == nullptr) return cudaErrorInvalidValue;
     if (hd == 64) return launch_wgmma<64>(a, lse_f, st);
     if (hd == 128) return launch_wgmma<128>(a, lse_f, st);
+    if (hd == 256) return launch_wgmma<256>(a, lse_f, st);
     return cudaErrorInvalidValue;
   }
   if (route != 0 || lse != nullptr) return cudaErrorInvalidValue;

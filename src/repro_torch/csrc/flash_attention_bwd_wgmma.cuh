@@ -1,10 +1,11 @@
 // The gradient of bf16 attention on Hopper's tensor cores (sm_90a): the
-// "wgmma" route of flash_attention_bwd.cu, for bf16 at head dims 64 and
-// 128, causal or full, with or without a sliding window.  It computes what
-// that file's FMA kernels compute (see its header for the function and the
-// reference it stands beside), from the forward's log-sum-exp instead of a
-// recomputed max and sum: with lse_i the forward's log-sum-exp of row i's
-// scaled logits (flash_attention_wgmma.cuh, kLse) and D_i = dO_i . o_i,
+// "wgmma" route of flash_attention_bwd.cu, for bf16 at head dims 64, 128
+// and 256, causal or full, with or without a sliding window.  It computes
+// what that file's FMA kernels compute (see its header for the function
+// and the reference it stands beside), from the forward's log-sum-exp
+// instead of a recomputed max and sum: with lse_i the forward's
+// log-sum-exp of row i's scaled logits (flash_attention_wgmma.cuh, kLse)
+// and D_i = dO_i . o_i,
 //   P_ij  = exp(scale s_ij - lse_i)   (0 where masked),
 //   dS_ij = P_ij (dO_i . v_j - D_i)   (0 where masked),
 //   dV_j = sum_i P_ij dO_i,  dK_j = scale sum_i dS_ij q_i,
@@ -25,33 +26,43 @@
 //     lse_i log2(e), into f32 stats [2][B][H][Sq_pad] with Sq_pad a
 //     multiple of 128, +inf and 0 past Sq (P = 0 and dS = 0 there); HD/8
 //     threads a row read 16 bytes each;
-//   * dK/dV (fa_bwd_dkdv_wgmma): one block per (128-key tile, KV head, b),
-//     the first key tiles first (under causal masking they see the most
-//     rows); two consumer warpgroups of 64 keys and a producer warpgroup
-//     whose one thread loads the K and V tiles once, then, for each query
-//     head of the group and each 64-row query tile that sees the key tile
-//     (and the tiles that hold a row that sees no key), the Q and dO tiles
-//     by TMA and their lse and D by bulk copy, into a ring of mbarrier
-//     stages (4 at hd 64, 3 at hd 128); each step runs S^T = K Q^T and
-//     dP^T = V dO^T as wgmma with both operands in shared memory, P^T and
-//     dS^T on the accumulator fragments (lse and D a column), then
-//     dV += P^T dO and dK += dS^T Q with P^T and dS^T packed to bf16 as the
-//     A operand from registers and dO and Q read through the transposed
-//     (N-major) descriptor; the group's query heads are summed in the
-//     block, so each key row is written once, dK scaled at the end;
+//   * dK/dV (fa_bwd_dkdv_wgmma): one block per (key tile, KV head, b), the
+//     first key tiles first (under causal masking they see the most rows);
+//     two consumer warpgroups and a producer warpgroup whose one thread
+//     loads the K and V tiles once, then, for each query head of the group
+//     and each 64-row query tile that sees the key tile (and the tiles that
+//     hold a row that sees no key), the Q and dO tiles by TMA and their lse
+//     and D by bulk copy, into a ring of mbarrier stages (4 at hd 64, 3 at
+//     hd 128, 2 at hd 256); the group's query heads are summed in the
+//     block, so each key row is written once, dK scaled at the end.
+//     At hd 64 and 128 (consume_kv) the tile holds 128 keys, 64 a consumer
+//     warpgroup, and each warpgroup runs S^T = K Q^T and dP^T = V dO^T as
+//     wgmma with both operands in shared memory, P^T and dS^T on the
+//     accumulator fragments (lse and D a column), then dV += P^T dO and
+//     dK += dS^T Q with P^T and dS^T packed to bf16 as the A operand from
+//     registers and dO and Q read through the transposed (N-major)
+//     descriptor.  A consumer thread holds dK and dV (hd/2 f32 each), S^T
+//     and dP^T (32 each) and their bf16 pairs: 192 registers at hd 128 of
+//     the 240 that setmaxnreg gives it, and 320 at hd 256.  So at hd 256
+//     (consume_kv_split) the tile holds 64 keys and the two warpgroups
+//     split the products on them: warpgroup 0 runs S^T, P^T and
+//     dV += P^T dO, warpgroup 1 dP^T, dS^T and dK += dS^T Q, and P^T passes
+//     from 0 to 1 in f32 through shared memory, each thread's fragment in
+//     one column of a [32][128] buffer (named barriers 1, full, and 2,
+//     empty), so dS = P (dP - D) is the narrower tiles' product of the
+//     same f32 values; a thread holds one accumulator of 128 f32, a
+//     64 x 64 fragment and its bf16 pairs;
 //   * dQ (fa_bwd_dq_wgmma): one block per (128-row query tile, h, b), the
 //     forward's shape with one more product: the producer loads Q and dO
-//     once and the key tiles (128 keys at hd 64, 64 at hd 128) of K and V
-//     into a ring of 3 stages; S = Q K^T and dP = dO V^T with both operands
-//     in shared memory, dS on the fragments (lse and D a row, in
-//     registers), dQ += dS K with the K tile read as the forward reads V;
-//     the key tiles are visited in order.
+//     once and the key tiles (128 keys at hd 64, 64 at hd 128, 32 at
+//     hd 256, where Q and dO take 128 KB) of K and V into a ring of 3
+//     stages; S = Q K^T and dP = dO V^T with both operands in shared
+//     memory, dS on the fragments (lse and D a row, in registers),
+//     dQ += dS K with the K tile read as the forward reads V; the key tiles
+//     are visited in order.
 // Masks run only on the tiles that need them (the diagonal, Sq's and Sk's
 // ends, the window's edges, a tile holding a row that sees no key); TMA
-// zero-fills past Sq and Sk.  A consumer thread holds dK and dV (hd/2 f32
-// each), S^T and dP^T (32 each) and their bf16 pairs: 192 registers at
-// hd 128 of the 240 that setmaxnreg gives it; at hd 256 dK and dV alone
-// would take 256, so bf16 at hd 256 stays on the FMA route.
+// zero-fills past Sq and Sk.
 #pragma once
 
 #include <cuda.h>
@@ -87,6 +98,33 @@ using fa_wgmma::wgmma_ss;
 using fa_wgmma::wgmma_wait;
 
 constexpr int kPad = 128;   // the stats' rows: Sq rounded up to this
+
+// D[64x32] (+)= A[64x16] . B[16x32]; A and B from shared memory, both
+// K-major (no transpose): S and dP over dQ's 32-key tiles at hd 256.
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// The P^T hand-off between dK/dV's warpgroups at hd 256 (named barriers
+// of both consumer warpgroups' 256 threads; 0 is __syncthreads').
+constexpr int kPFull = 1, kPEmpty = 2;
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
 
 // ---------------------------------------------------------------------------
 // the row pass
@@ -147,6 +185,26 @@ struct KvSmem {
   bf16 dout[kStages][kBQ * HD];
   float lse[kStages][kBQ];
   float dd[kStages][kBQ];
+  uint64_t kv_full;
+  uint64_t full[kStages];
+  uint64_t empty[kStages];
+};
+
+// At hd 256 a block's 64 keys, shared by both consumer warpgroups, two
+// stages (Q and dO take 64 KB a stage) and the P^T hand-off from
+// warpgroup 0 to 1: p[i][t] is fragment register i of thread t.
+template <>
+struct KvSmem<256> {
+  static constexpr int kBK = 64;
+  static constexpr int kBQ = 64;
+  static constexpr int kStages = 2;
+  bf16 k[kBK * 256];
+  bf16 v[kBK * 256];
+  bf16 q[kStages][kBQ * 256];
+  bf16 dout[kStages][kBQ * 256];
+  float lse[kStages][kBQ];
+  float dd[kStages][kBQ];
+  float p[kBQ / 2][128];
   uint64_t kv_full;
   uint64_t full[kStages];
   uint64_t empty[kStages];
@@ -363,6 +421,145 @@ __device__ __forceinline__ void consume_kv(
   }
 }
 
+// At hd 256: both consumer warpgroups on keys [k0, k0 + 64), a thread
+// holding keys k0 + r0 and k0 + r0 + 8 and query columns 8 j + c0 + {0, 1}.
+// Warpgroup 0 runs S^T = K Q^T, P^T and dV += P^T dO and hands P^T over;
+// warpgroup 1 runs dP^T = V dO^T, takes P^T, forms dS^T and dK += dS^T Q.
+// Each writes its accumulator's key rows in bf16 at the end.
+template <bool kWindow>
+__device__ __forceinline__ void consume_kv_split(
+    KvSmem<256>& sm, bf16* __restrict__ dk, bf16* __restrict__ dv,
+    Strides dks, Strides dvs, int sq, int sk, float scale, float scale_log2,
+    int causal, int window, int group, int k0, int g, int b, Span sp,
+    int warp, int lane) {
+  constexpr int HD = 256;
+  using S = KvSmem<HD>;
+  constexpr int kBQ = S::kBQ;
+  const int wg = warp / 4;
+  const int t = (warp % 4) * 32 + lane;   // the thread in its warpgroup
+  const int r0 = (warp % 4) * 16 + lane / 4;
+  const int c0 = (lane % 4) * 2;
+  const int kj[2] = {k0 + r0, k0 + r0 + 8};
+  const float inv_sk = 1.f / static_cast<float>(sk);
+  const int blind0 = sk + window - 1;   // rows from here on see no key
+  // the first product's A operand: K (warpgroup 0) or V (1)
+  const bf16* a_tile = wg == 0 ? sm.k : sm.v;
+
+  float acc[HD / 2];            // dV (0) or dK (1): [64 keys x HD]
+  float f[kBQ / 2];             // S^T then P^T (0); dP^T then dS^T (1)
+  uint32_t fa[kBQ / 16][4];     // P^T or dS^T as the A operand
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kBQ / 2; ++i) f[i] = 0.f;
+
+  const int n_tiles = sp.count();
+  const int n_steps = group * n_tiles;
+  if (n_steps > 0) mbar_wait(&sm.kv_full, 0);
+  for (int n = 0; n < n_steps; ++n) {
+    const int s = n % S::kStages;
+    const int i0 = sp.at(n % n_tiles) * kBQ;
+    mbar_wait(&sm.full[s], (n / S::kStages) & 1);
+    // the second product's B operand: dO (0) or Q (1), N-major
+    const bf16* b1 = wg == 0 ? sm.q[s] : sm.dout[s];
+    const bf16* b2 = wg == 0 ? sm.dout[s] : sm.q[s];
+    // S^T = K Q^T (0) or dP^T = V dO^T (1): hd/16 wgmma (both K-major)
+    wgmma_fence();
+    fence_regs(f);
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const int box = kk / 4, col = (kk % 4) * 16;
+      wgmma_ss(f, desc_sw128(a_tile + box * S::kBK * kBox + col, 16),
+               desc_sw128(b1 + box * kBQ * kBox + col, 16), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(f);
+    // the mask runs on the diagonal, Sq's end, the window's lower edge and
+    // the tiles holding a row that sees no key
+    const bool edge = (causal && i0 < k0 + 63) || i0 + kBQ > sq ||
+                      (kWindow && (i0 + kBQ - 1 - k0 >= window ||
+                                   i0 + kBQ - 1 >= blind0));
+    if (wg == 0) {
+#pragma unroll
+      for (int j = 0; j < kBQ / 8; ++j) {
+        const float2 l2 =
+            *reinterpret_cast<const float2*>(&sm.lse[s][j * 8 + c0]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = exp2_ftz(fmaf(f[j * 4 + e], scale_log2,
+                                  -((e & 1) ? l2.y : l2.x)));
+          if (edge) {
+            const int qi = i0 + j * 8 + c0 + (e & 1), key = kj[e >> 1];
+            const bool vis = qi < sq && !(causal && key > qi) &&
+                             !(kWindow && qi - key >= window);
+            const bool blind = kWindow && qi >= blind0 && qi < sq;
+            p = vis ? p : (blind ? inv_sk : 0.f);
+          }
+          f[j * 4 + e] = p;
+        }
+      }
+      // warpgroup 1 has read the last step's P^T
+      if (n > 0) named_sync(kPEmpty);
+#pragma unroll
+      for (int i = 0; i < kBQ / 2; ++i) sm.p[i][t] = f[i];
+      named_arrive(kPFull);
+    } else {
+      named_sync(kPFull);
+#pragma unroll
+      for (int j = 0; j < kBQ / 8; ++j) {
+        const float2 d2 =
+            *reinterpret_cast<const float2*>(&sm.dd[s][j * 8 + c0]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float ds = sm.p[j * 4 + e][t] *
+                     (f[j * 4 + e] - ((e & 1) ? d2.y : d2.x));
+          if (edge) {
+            const int qi = i0 + j * 8 + c0 + (e & 1), key = kj[e >> 1];
+            const bool vis = qi < sq && !(causal && key > qi) &&
+                             !(kWindow && qi - key >= window);
+            ds = vis ? ds : 0.f;
+          }
+          f[j * 4 + e] = ds;
+        }
+      }
+      // (the last step's is never waited for)
+      if (n + 1 < n_steps) named_arrive(kPEmpty);
+    }
+    pack_p<kBQ>(fa, f);
+    // dV += P^T dO (0) or dK += dS^T Q (1): kBQ/16 wgmma, A from
+    // registers, B N-major (transposed) from shared memory
+    wgmma_fence();
+    fence_regs(acc);
+    fence_regs(fa);
+#pragma unroll
+    for (int kk = 0; kk < kBQ / 16; ++kk)
+      wgmma_rs(acc, fa[kk], desc_sw128(b2 + kk * 16 * kBox,
+                                       kBQ * kBox * 2), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_regs(fa);
+    release(&sm.empty[s], lane);
+  }
+
+  // each key row once: dV (0), dK scaled (1), bf16 pairs through the
+  // strides
+  const float mul = wg == 0 ? 1.f : scale;
+  bf16* out = wg == 0 ? dv : dk;
+  const Strides os = wg == 0 ? dvs : dks;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (kj[r] >= sk) continue;
+    bf16* row = out + b * os.b + static_cast<int64_t>(kj[r]) * os.s +
+                g * os.h + c0;
+#pragma unroll
+    for (int jj = 0; jj < HD / 8; ++jj)
+      *reinterpret_cast<uint32_t*>(row + jj * 8) =
+          pack_bf16(acc[jj * 4 + 2 * r] * mul, acc[jj * 4 + 2 * r + 1] * mul);
+  }
+}
+
 template <int HD, bool kWindow>
 __global__ void __launch_bounds__(kThreads, 1)
 fa_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap q_map,
@@ -374,7 +571,8 @@ fa_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap q_map,
                   int kv_heads, int batch, int sq_pad, Strides dks,
                   Strides dvs, float scale, float scale_log2, int causal,
                   int window) {
-  static_assert(HD == 64 || HD == 128, "head dim 64 or 128");
+  static_assert(HD == 64 || HD == 128 || HD == 256,
+                "head dim 64, 128 or 256");
   using S = KvSmem<HD>;
   extern __shared__ unsigned char smem_raw[];
   S& sm = *reinterpret_cast<S*>(
@@ -411,8 +609,14 @@ fa_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap q_map,
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
         kConsumerRegs));
-    consume_kv<HD, kWindow>(sm, dk, dv, dks, dvs, sq, sk, scale, scale_log2,
-                            causal, window, group, k0, g, b, sp, warp, lane);
+    if constexpr (HD == 256)
+      consume_kv_split<kWindow>(sm, dk, dv, dks, dvs, sq, sk, scale,
+                                scale_log2, causal, window, group, k0, g, b,
+                                sp, warp, lane);
+    else
+      consume_kv<HD, kWindow>(sm, dk, dv, dks, dvs, sq, sk, scale,
+                              scale_log2, causal, window, group, k0, g, b,
+                              sp, warp, lane);
   }
 }
 
@@ -422,11 +626,13 @@ fa_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap q_map,
 
 // A block's 128 query rows of Q and dO (64 a consumer warpgroup), then a
 // ring of key tiles of K and V: 128 keys at hd 64, 64 at hd 128 (so a
-// consumer thread's S and dP take 64 registers together, beside dQ's 64).
+// consumer thread's S and dP take 64 registers together, beside dQ's 64),
+// 32 at hd 256 (S and dP 32 beside dQ's 128; three stages and Q and dO
+// take 224 KB).
 template <int HD>
 struct QSmem {
   static constexpr int kBQ = 128;
-  static constexpr int kBK = HD == 64 ? 128 : 64;
+  static constexpr int kBK = HD == 64 ? 128 : HD == 128 ? 64 : 32;
   static constexpr int kStages = 3;
   bf16 q[kBQ * HD];
   bf16 dout[kBQ * HD];
@@ -594,7 +800,8 @@ fa_bwd_dq_wgmma(const __grid_constant__ CUtensorMap q_map,
                 int sq, int sk, int heads, int kv_heads, int batch,
                 int sq_pad, Strides dqs, float scale, float scale_log2,
                 int causal, int window) {
-  static_assert(HD == 64 || HD == 128, "head dim 64 or 128");
+  static_assert(HD == 64 || HD == 128 || HD == 256,
+                "head dim 64, 128 or 256");
   using S = QSmem<HD>;
   extern __shared__ unsigned char smem_raw[];
   S& sm = *reinterpret_cast<S*>(

@@ -64,7 +64,7 @@
 //     divides its sum by Sk (the zero-filled keys past Sk add 0 to O);
 //   * the epilogue divides by l and stores bf16 pairs through the output's
 //     strides, so the model layout [B,S,H,hd] needs no copy;
-//   * when a gradient is wanted (the kLse template flag, at hd 64 and 128)
+//   * when a gradient is wanted (the kLse template flag, at every head dim)
 //     the epilogue also writes each row's log-sum-exp of its scaled logits,
 //     lse = scale m + log l, into f32 [B, H, Sq] for the backward
 //     (flash_attention_bwd_wgmma.cuh); a row that sees no key gets NEG_INF,

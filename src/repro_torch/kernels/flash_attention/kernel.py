@@ -57,10 +57,10 @@ tensor it launches the route's kernel or raises: no route is taken on
 failure.  ``flash_attention.launches`` counts kernel launches,
 ``launches_wgmma`` and ``launches_fma`` each route's.
 
-With ``lse=`` (f32 [B, H, Sq]) the ``wgmma`` route at hd 64 and 128 also
-writes each row's log-sum-exp of its scaled logits (a template flag of
-the kernel, so a call without it runs the flagless code): the input of
-the backward's ``wgmma`` route (for a CPU tensor
+With ``lse=`` (f32 [B, H, Sq]) the ``wgmma`` route also writes each
+row's log-sum-exp of its scaled logits (a template flag of the kernel,
+so a call without it runs the flagless code): the input of the
+backward's ``wgmma`` route (for a CPU tensor
 :func:`~repro_torch.kernels.flash_attention.ref.attention_lse_ref`).
 
 :func:`flash_attention_bwd` is the gradient, dQ, dK and dV
@@ -71,19 +71,24 @@ reference differentiates its jnp attention).  Two routes, picked by
   ===========================  =========  =====================================
   dtype, head dim              route      kernels
   ===========================  =========  =====================================
-  bf16 at hd 64 and 128        ``wgmma``  ``csrc/flash_attention_bwd_wgmma.cuh``
+  bf16 at hd 64, 128 and 256   ``wgmma``  ``csrc/flash_attention_bwd_wgmma.cuh``
   f32 at every hd; bf16 at     ``fma``    ``csrc/flash_attention_bwd.cu``
-  hd 16, 32 and 256
+  hd 16 and 32
   ===========================  =========  =====================================
 
 - ``"wgmma"`` takes the forward's ``lse`` (required): a row pass writes
   D = dO·o and lse·log2(e) into f32 scratch padded to 128 rows, then one
-  kernel a 128-key tile (two consumer warpgroups of 64 keys, a TMA
-  producer ringing 64-row Q and dO tiles of each query head of the group)
-  runs Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ, then dV += Pᵀ·dO and dK += dSᵀ·Q on
-  ``wgmma``, and one kernel a 128-row query tile runs S, dP and
-  dQ += dS·K, the forward's shape with one more product.  Seven products
-  of hd a pair and no atomics: each output row is written by one block.
+  kernel a key tile (a TMA producer ringing 64-row Q and dO tiles of each
+  query head of the group) runs Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ, then
+  dV += Pᵀ·dO and dK += dSᵀ·Q on ``wgmma``: at hd 64 and 128 a 128-key
+  tile, each of two consumer warpgroups running all four products on its
+  64 keys; at hd 256, where dK and dV would take 256 registers a thread,
+  a 64-key tile whose warpgroups split them (one Sᵀ, Pᵀ and dV, the other
+  dPᵀ, dSᵀ and dK, Pᵀ handed over in f32 through shared memory).  Then
+  one kernel a 128-row query tile runs S, dP and dQ += dS·K, the
+  forward's shape with one more product (key tiles of 128, 64 and 32 at
+  hd 64, 128 and 256).  Seven products of hd a pair and no atomics: each
+  output row is written by one block.
 - ``"fma"`` recomputes each row's softmax max and sum and D in a row pass,
   then sums dK and dV a key tile at a time over the group's query heads
   and dQ a query tile at a time, on the f32 FMA units (f32 within 2e-5).
@@ -112,8 +117,8 @@ HEAD_DIMS = (16, 32, 64, 128, 256)
 #: Head dims of the ``wgmma`` route (bf16 only, with or without a window).
 WGMMA_HEAD_DIMS = (64, 128, 256)
 #: Head dims of the backward's ``wgmma`` route (bf16 only), where the
-#: forward writes its log-sum-exp.
-BWD_WGMMA_HEAD_DIMS = (64, 128)
+#: forward writes its log-sum-exp: every head dim of the forward's.
+BWD_WGMMA_HEAD_DIMS = (64, 128, 256)
 #: Rows of the backward ``wgmma`` route's scratch are Sq rounded up to this
 #: (``kPad`` of ``csrc/flash_attention_bwd_wgmma.cuh``, whose kernels read
 #: whole 64- and 128-row tiles of it).
@@ -141,9 +146,9 @@ def _route(dtype: torch.dtype, hd: int, window: int = 0) -> str:
 
 def _bwd_route(dtype: torch.dtype, hd: int, window: int = 0) -> str:
     """The kernels a CUDA call of :func:`flash_attention_bwd` takes:
-    ``"wgmma"`` for bf16 at hd 64 and 128, with or without a window;
+    ``"wgmma"`` for bf16 at hd 64, 128 and 256, with or without a window;
     ``"fma"`` otherwise (f32 stays on the FMA units, within 2e-5; bf16 at
-    hd 256 needs 256 registers a thread for dK and dV alone).  ``window``
+    hd 16 and 32 is below the tensor cores' 64-wide tiles).  ``window``
     does not change the route."""
     del window
     if dtype == torch.bfloat16 and hd in BWD_WGMMA_HEAD_DIMS:
@@ -229,7 +234,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     dtype, written into ``out`` when given.  Any strides with the head
     dim contiguous.  ``window`` 0 is none.  ``lse``, f32 [B, H, Sq]
     contiguous, receives each row's log-sum-exp where the backward's
-    ``wgmma`` route reads it (bf16 at hd 64 and 128)."""
+    ``wgmma`` route reads it (bf16 at hd 64, 128 and 256)."""
     _check(q, k, v, out, window)
     if lse is not None:
         if _bwd_route(q.dtype, q.shape[3], window) != "wgmma":

@@ -6,9 +6,11 @@ opt_state, metrics) step: ``api.loss`` and its backward (the attention and
 WKV6 kernels' backward kernels on the card), optional gradient
 compression, and AdamW over the weights in the reference's leaf order.
 ``run`` drives it with checkpoint/restore, auto-resume, a straggler
-watchdog and the reference's log lines, and also returns each step's
-seconds on the host clock (``step_seconds``, the watchdog's reading: from
-the end of one step, its loss read back, to the end of the next).  The
+watchdog and the reference's log lines (``ckpt_every`` 0 saves no
+checkpoint, where the reference's modulo would raise), and also returns
+each step's seconds on the host clock (``step_seconds``, the watchdog's
+reading: from the end of one step, its loss read back, to the end of the
+next).  The
 checkpoint holds the reference's tree, ``(params, AdamWState(step, m,
 v))`` with every layer leaf stacked [L, ...], so a checkpoint of either
 package restores in the other.  The model and the moments are updated
@@ -45,7 +47,7 @@ from repro_torch.optim.compression import compress_grads
 class TrainConfig:
     steps: int = 100
     log_every: int = 10
-    ckpt_every: int = 50
+    ckpt_every: int = 50             # 0: no checkpoint is saved
     ckpt_dir: str = "checkpoints"
     keep: int = 3
     grad_compression: str = "none"   # none | int8
@@ -186,7 +188,8 @@ def run(api: ModelAPI, train_cfg: TrainConfig, mesh=None,
             print(f"[train] step {i:5d} loss {loss:.4f} "
                   f"gnorm {float(metrics['grad_norm']):.3f} "
                   f"lr {float(metrics['lr']):.2e} {dt * 1e3:.0f} ms")
-        if (i + 1) % train_cfg.ckpt_every == 0 or i == train_cfg.steps - 1:
+        if train_cfg.ckpt_every and ((i + 1) % train_cfg.ckpt_every == 0
+                                     or i == train_cfg.steps - 1):
             ckpt.save(checkpoint_tree(api, model, opt_state), step=i + 1)
     return dict(losses=losses, params=model, opt_state=opt_state,
                 straggler_flags=dog.flagged, step_seconds=seconds)

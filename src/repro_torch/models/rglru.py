@@ -15,8 +15,11 @@ PyTorch over a ring of ``window`` slots.  ``jax.nn.gelu`` is the tanh
 approximation, so the port's GELU is ``approximate="tanh"``.
 ``forward`` and ``decode_step`` run under ``torch.inference_mode()``;
 ``lm_loss`` runs the same blocks with gradients enabled (the attention
-kernel's backward once per super-block); its weights in the reference's
-tree are :func:`param_tree`.
+kernel's backward once per super-block) and, as the reference's
+``jax.checkpoint`` over each super-block, rematerialises them: a
+super-block keeps only its input for the backward, which runs its forward
+again (the attention kernel's forward twice a super-block a step); its
+weights in the reference's tree are :func:`param_tree`.
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as A
 from repro_torch.models.common import (ArchConfig, Layers, cross_entropy,
@@ -310,6 +314,12 @@ def _attn_block_train(p: AttnBlock, x, cfg: ArchConfig):
     return x + _glu(p.mlp, rms_norm(x, p.ln_mlp, cfg.norm_eps))
 
 
+def _super_block(sb: SuperBlock, x, cfg: ArchConfig):
+    x = _rec_block_train(sb.rec1, x, cfg)
+    x = _rec_block_train(sb.rec2, x, cfg)
+    return _attn_block_train(sb.attn, x, cfg)
+
+
 def _logits(params: GriffinParams, x, cfg: ArchConfig):
     x = rms_norm(x, params.ln_f, cfg.norm_eps)
     return torch.einsum("...d,dv->...v", x, params.embed.T.to(cfg.dtype))
@@ -318,12 +328,15 @@ def _logits(params: GriffinParams, x, cfg: ArchConfig):
 def _forward(params: GriffinParams, tokens: torch.Tensor,
              cfg: ArchConfig) -> torch.Tensor:
     """tokens [B, S] -> logits [B, S, V], recording the graph when
-    gradients are enabled."""
+    gradients are enabled, with each super-block rematerialised (the same
+    ops run again in the backward, so the values do not change)."""
     x = params.embed[tokens].to(cfg.dtype)
+    remat = torch.is_grad_enabled()
     for sb in params.supers:
-        x = _rec_block_train(sb.rec1, x, cfg)
-        x = _rec_block_train(sb.rec2, x, cfg)
-        x = _attn_block_train(sb.attn, x, cfg)
+        if remat:
+            x = checkpoint(_super_block, sb, x, cfg, use_reentrant=False)
+        else:
+            x = _super_block(sb, x, cfg)
     for tl in list(params.tail)[:n_tail(cfg)]:
         x = _rec_block_train(tl, x, cfg)
     return _logits(params, x, cfg)

@@ -635,10 +635,11 @@ def test_sharded_mesh_on_the_card_matches_cpu():
 # (B, H, KV, Sq, Sk, hd, causal, window, dtype): f32 at 2e-5, bf16 at 4e-2
 # absolute plus 2e-2 relative (both sides round dq, dk, dv to bf16; the
 # kernel's D = dO.o reads the forward's bf16 o, and the wgmma route rounds
-# P and dS to bf16 for the tensor cores).  bf16 at hd 64 and 128 takes the
-# wgmma route: causal and full, GQA groups 1, 2, 3 and 4, ragged Sq and Sk
-# with Sq != Sk both ways, window edges inside a tile, and rows that see
-# no key (Sq 300 > Sk 100 + window 40)
+# P and dS to bf16 for the tensor cores).  bf16 at hd 64, 128 and 256
+# takes the wgmma route: causal and full, GQA groups 1, 2, 3, 4 and 10,
+# ragged Sq and Sk with Sq != Sk both ways, window edges inside a tile, and
+# rows that see no key (Sq 300 > Sk 100 + window 40; at hd 256 also Sq 200
+# > Sk 120 + window 64, the seventh case)
 BWD_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (4e-2, 2e-2)}
 FLASH_BWD_CASES = [(2, 4, 2, 64, 64, 64, True, 0, "float32"),
                    (1, 2, 1, 100, 37, 16, False, 0, "float32"),
@@ -655,7 +656,12 @@ FLASH_BWD_CASES = [(2, 4, 2, 64, 64, 64, True, 0, "float32"),
                    (1, 6, 2, 260, 260, 64, True, 100, "bfloat16"),
                    (1, 2, 1, 150, 200, 64, False, 50, "bfloat16"),
                    (1, 4, 1, 300, 100, 64, True, 40, "bfloat16"),
-                   (1, 4, 4, 300, 100, 128, True, 40, "bfloat16")]
+                   (1, 4, 4, 300, 100, 128, True, 40, "bfloat16"),
+                   (1, 4, 2, 190, 333, 256, True, 0, "bfloat16"),
+                   (1, 3, 1, 333, 190, 256, False, 0, "bfloat16"),
+                   (2, 10, 1, 300, 300, 256, True, 100, "bfloat16"),
+                   (1, 6, 2, 130, 130, 256, False, 33, "bfloat16"),
+                   (1, 4, 4, 300, 100, 256, True, 40, "bfloat16")]
 
 
 def bwd_route_counts(flash_attention_bwd):
@@ -694,8 +700,8 @@ def test_flash_attention_bwd_kernel_matches_plain_version(
     assert bwd_route_counts(flash_attention_bwd) == (
         n0[0] + 2, n0[1] + 2 * (route == "wgmma"),
         n0[2] + 2 * (route == "fma"))
-    assert route == ("wgmma" if dtype == "bfloat16" and hd in (64, 128)
-                     else "fma")
+    assert route == ("wgmma" if dtype == "bfloat16"
+                     and hd in (64, 128, 256) else "fma")
     for g, a, w in zip(got, again, want):
         assert g.dtype == q.dtype
         assert torch.equal(g, a)                  # no atomics

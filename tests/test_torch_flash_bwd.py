@@ -9,7 +9,11 @@ that see no key included (NEG_INF + log Sk is NEG_INF in f32); the
 formula against ``jax.grad`` of ``_sdpa_naive``; both at 1e-5 in f32 (the
 two sum in other orders).  The cases are the attention cases of
 tests/test_torch_train_grad.py: causal and full, GQA and MQA, a window,
-Sq != Sk both ways, rows that see no key.
+Sq != Sk both ways, rows that see no key (the reference's gradient
+jitted: op by op it spent ~3 s a case compiling); and at hd 256 (the ``wgmma``
+route's widest tiles) the same kinds: MQA with a window inside the
+sequence, rows that see no key, full and causal GQA, Sq != Sk both ways
+and a full window.
 """
 import jax
 import jax.numpy as jnp
@@ -35,7 +39,13 @@ ATTN_CASES = [  # b, h, kv, sq, sk, hd, causal, window
     (2, 4, 1, 20, 20, 16, True, 5),      # window, MQA
     (1, 4, 2, 10, 7, 16, False, 0),      # Sq != Sk (cross)
     (1, 2, 1, 18, 6, 16, True, 4),       # rows that see no key
-    (1, 2, 2, 9, 14, 32, False, 3)]      # full window, Sq < Sk
+    (1, 2, 2, 9, 14, 32, False, 3),      # full window, Sq < Sk
+    (1, 2, 1, 20, 20, 256, True, 7),     # hd 256: MQA, window inside
+    (1, 2, 1, 14, 5, 256, True, 3),      # hd 256: rows that see no key
+    (1, 4, 2, 9, 12, 256, False, 0),     # hd 256: full, GQA, Sq < Sk
+    (2, 4, 2, 17, 17, 256, True, 0),     # hd 256: causal, GQA, batch 2
+    (1, 4, 1, 13, 8, 256, False, 0),     # hd 256: Sq > Sk, MQA
+    (1, 2, 2, 11, 19, 256, False, 5)]    # hd 256: full window, Sq < Sk
 
 
 def attn_inputs(seed, b, h, kv, sq, sk, hd):
@@ -64,7 +74,8 @@ def reference_lse(q, k, causal, window):
     if window:
         mask &= qpos[:, None] - kpos[None, :] < window
     logits = jnp.where(mask, logits, JA.NEG_INF)
-    return np.asarray(jax.nn.logsumexp(logits, axis=-1)).reshape(b, h, sq)
+    return np.asarray(jax.jit(jax.nn.logsumexp, static_argnums=1)(
+        logits, -1)).reshape(b, h, sq)
 
 
 @pytest.mark.parametrize("b,h,kv,sq,sk,hd,causal,window", ATTN_CASES)
@@ -91,7 +102,7 @@ def test_bwd_lse_plain_version_matches_jax_grad(b, h, kv, sq, sk, hd,
     q, k, v, do = attn_inputs(sq * 7 + sk, b, h, kv, sq, sk, hd)
     f = lambda q, k, v: jnp.sum(JA._sdpa_naive(
         q, k, v, causal=causal, window=window) * do)
-    want = jax.grad(f, argnums=(0, 1, 2))(q, k, v)
+    want = jax.jit(jax.grad(f, argnums=(0, 1, 2)))(q, k, v)
     tq, tk, tv, tdo = map(kernel_layout, (q, k, v, do))
     kw = dict(causal=causal, window=window)
     o = attention_ref(tq, tk, tv, **kw)
@@ -106,12 +117,12 @@ def test_bwd_lse_plain_version_matches_jax_grad(b, h, kv, sq, sk, hd,
 @pytest.mark.parametrize("hd", HEAD_DIMS)
 @pytest.mark.parametrize("window", [0, 7])
 def test_bwd_route_table(dtype, hd, window):
-    """bf16 at hd 64 and 128 takes wgmma, with or without a window; f32
-    never does (it stays within 2e-5 on FMA), nor bf16 at 16, 32, 256."""
-    want = ("wgmma" if dtype == torch.bfloat16 and hd in (64, 128)
+    """bf16 at hd 64, 128 and 256 takes wgmma, with or without a window;
+    f32 never does (it stays within 2e-5 on FMA), nor bf16 at 16 and 32."""
+    want = ("wgmma" if dtype == torch.bfloat16 and hd in (64, 128, 256)
             else "fma")
     assert _bwd_route(dtype, hd, window) == want
-    assert BWD_WGMMA_HEAD_DIMS == (64, 128)
+    assert BWD_WGMMA_HEAD_DIMS == (64, 128, 256)
 
 
 def bf16_inputs(b=1, h=4, kv=2, sq=24, sk=24, hd=64, seed=3):
@@ -157,7 +168,7 @@ def test_bwd_wgmma_route_refuses_a_bad_lse(bad):
 
 
 def test_fma_route_refuses_an_lse():
-    """f32 (and bf16 at hd 256) takes the fma route, which reads no lse:
+    """f32 (and bf16 at hd 32) takes the fma route, which reads no lse:
     both wrappers raise when given one."""
     q, k, v, do = (x.float() for x in bf16_inputs())
     lse = torch.zeros(q.shape[:3])
@@ -165,7 +176,7 @@ def test_fma_route_refuses_an_lse():
         flash_attention_bwd(q, k, v, q, do, lse=lse)
     with pytest.raises(ValueError, match="lse"):
         flash_attention(q, k, v, lse=lse)
-    q, k, v, do = bf16_inputs(hd=256)
+    q, k, v, do = bf16_inputs(hd=32)
     with pytest.raises(ValueError, match="lse"):
         flash_attention(q, k, v, lse=torch.zeros(q.shape[:3]))
 

@@ -59,6 +59,24 @@ def test_train_loop_and_resume(tmp_path):
     assert int(out2["opt_state"].step) == 8
 
 
+def test_run_saves_no_checkpoint_at_ckpt_every_0(tmp_path):
+    """``ckpt_every`` 0 trains without writing a checkpoint (the full-width
+    recurrentgemma cell's setting); the losses are those of a run that
+    saves one."""
+    api = TREG.build(TC.get_reduced("smollm_135m"), device="cpu")
+    opt = TA.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=3)
+    runs = {}
+    for every in (0, 3):
+        ckdir = tmp_path / str(every)
+        ckdir.mkdir()
+        tc = TTR.TrainConfig(steps=3, ckpt_every=every, log_every=100,
+                             ckpt_dir=str(ckdir), opt=opt)
+        runs[every] = TTR.run(api, tc, batch_size=2, seq=16, verbose=False)
+        assert any(ckdir.iterdir()) == (every > 0)
+    assert runs[0]["losses"] == runs[3]["losses"]
+    assert int(runs[0]["opt_state"].step) == 3
+
+
 def test_straggler_watchdog():
     dog = TTR.StragglerWatchdog(factor=3.0)
     for _ in range(10):

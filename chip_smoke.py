@@ -2122,16 +2122,20 @@ LSE_TOL = (1e-4, 1e-5)
 FLASH_BWD_TIMED = [(4, 9, 3, 4096, 4096, 64, True, 0) + _BF16_BWD,
                    (4, 10, 1, 4096, 4096, 256, True, 2048) + _BF16_BWD,
                    (1, 10, 1, 4096, 4096, 256, True, 2048) + _BF16_BWD]
-# K3's backward (B, H, T, N), f32: its checkpoint chunks of 16 steps (1,
-# 15, 17, 33 and 67 steps), every head size, and rwkv6-1.6b's training
-# shape (T 2048, the train cell's), each gradient held within
-# 1e-4 · max(1, max|g|) absolute, the gradient leaves' criterion of
+# K3's backward (B, H, T, N, small w), f32: its checkpoint chunks of 16
+# steps and their 8-step halves (1, 15, 17, 33 and 67 steps), every head
+# size past two chunks (N 16 at 40 steps, N 32 at 50), decays in [0, 0.05)
+# with exact zeros (small w), and rwkv6-1.6b's training shape (T 2048, the
+# train cell's), each gradient held within 1e-4 · max(1, max|g|)
+# absolute, the gradient leaves' criterion of
 # tests/test_torch_train_grad.py: f32 sums in other orders, and du sums
 # B·T terms (8,192 at T 2048; earlier runs read 5.4e-3 there against
 # partial sums in the hundreds).
-WKV_BWD_CASES = [(2, 3, 1, 16), (2, 3, 15, 16), (1, 2, 17, 32),
-                 (2, 2, 40, 64), (1, 1, 33, 64), (2, 32, 67, 64),
-                 (4, 32, 2048, 64)]
+WKV_BWD_CASES = [(2, 3, 1, 16, False), (2, 3, 15, 16, False),
+                 (1, 2, 17, 32, False), (2, 2, 40, 64, False),
+                 (1, 1, 33, 64, False), (2, 32, 67, 64, False),
+                 (2, 3, 40, 16, False), (1, 2, 50, 32, False),
+                 (2, 4, 70, 64, True), (4, 32, 2048, 64, False)]
 WKV_BWD_TOL = 1e-4
 
 
@@ -2289,20 +2293,38 @@ def phase_flash_bwd(torch, flash_attention, flash_attention_bwd,
     return main
 
 
-def phase_wkv_bwd(torch, wkv6_bwd, wkv6_bwd_ref):
+def wkv_bwd_inputs(torch, gen, b, h, t, n, small_w):
+    """r, k, v, dO normal, u normal, w in [0.45, 0.95) or, with
+    ``small_w``, in [0, 0.05) with a tenth of it exactly 0; f32 on the
+    card."""
+    r, k, v, do = (torch.randn((b, h, t, n), generator=gen, device="cuda")
+                   for _ in range(4))
+    w = torch.rand((b, h, t, n), generator=gen, device="cuda")
+    if small_w:
+        w *= 0.05
+        w[torch.rand(w.shape, generator=gen, device="cuda") < 0.1] = 0.0
+    else:
+        w = w * 0.5 + 0.45
+    u = torch.randn((h, n), generator=gen, device="cuda")
+    return r, k, v, w, u, do
+
+
+def phase_wkv_bwd(torch, wkv6_bwd, wkv6_bwd_ref, logs):
     """K3's backward kernel against the plain version's autograd
     (``WKV_BWD_CASES``), bit for bit on a rerun; the training shape timed
     (a CUDA graph of calls, and an eager call) beside the plain version
-    and the bound.  Returns its numbers."""
+    and the bound, with its kernels a call, its transient scratch and
+    ptxas's registers, spills and shared memory (``logs``: the build's
+    ptxas output).  Returns its numbers."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.rwkv_scan.kernel import wkv6_bwd_occupancy
     gen = torch.Generator(device="cuda").manual_seed(15)
     torch.cuda.reset_peak_memory_stats()
     max_err = 0.0
-    for b, h, t, n in WKV_BWD_CASES:
-        r, k, v, do = (torch.randn((b, h, t, n), generator=gen,
-                                   device="cuda") for _ in range(4))
-        w = torch.rand((b, h, t, n), generator=gen, device="cuda") * 0.5 \
-            + 0.45
-        u = torch.randn((h, n), generator=gen, device="cuda")
+    for b, h, t, n, small_w in WKV_BWD_CASES:
+        r, k, v, w, u, do = wkv_bwd_inputs(torch, gen, b, h, t, n, small_w)
         n0 = wkv6_bwd.launches
         got = wkv6_bwd(r, k, v, w, u, do)
         again = wkv6_bwd(r, k, v, w, u, do)
@@ -2312,7 +2334,8 @@ def phase_wkv_bwd(torch, wkv6_bwd, wkv6_bwd_ref):
         ref_s = time.perf_counter() - t0
         if wkv6_bwd.launches != n0 + 2:
             raise AssertionError("wkv6_bwd did not count its launches")
-        what = f"wkv6_bwd B={b} H={h} T={t} N={n} f32"
+        what = (f"wkv6_bwd B={b} H={h} T={t} N={n} f32"
+                + (" w in [0, 0.05) with zeros" if small_w else ""))
         errs = [_check_close(torch, g, x, WKV_BWD_TOL * max(
             1.0, float(x.abs().max())), 0.0, f"{what} {name}")
                 for name, g, x in zip(("dr", "dk", "dv", "dw", "du"), got,
@@ -2327,8 +2350,45 @@ def phase_wkv_bwd(torch, wkv6_bwd, wkv6_bwd_ref):
                                   for x in want)
             + f"); a rerun gives the same bits; plain version {ref_s:.3f} s")
         del got, again, want
+    name = "wkv6_bwd"
+    for ln in logs.get("wkv6_bwd", "").splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", ln)
+        if entry:
+            name = entry.group(1)
+        elif "registers" in ln or "spill" in ln:
+            log(f"kernel  wkv6_bwd ptxas {name}: {ln.strip()}")
+    log("kernel  wkv6_bwd occupancy by head size (dynamic shared memory a "
+        "CTA, CTAs an SM): "
+        + str({hn: wkv6_bwd_occupancy(hn) for hn in (16, 32, 64)}))
     grads = tuple(torch.empty_like(r) for _ in range(4))
     kernel = lambda: wkv6_bwd(r, k, v, w, u, do, grads=grads)
+    kernel()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kernel()
+    torch.cuda.synchronize()
+    scratch = torch.cuda.max_memory_allocated() - base
+    # a warm-up step first (a profile without one missed a launch of five);
+    # the five active steps' averages are read when they end
+    averages = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=torch.profiler.schedule(wait=0, warmup=1, active=5,
+                                                  repeat=1),
+                 on_trace_ready=lambda p: averages.append(
+                     p.key_averages())) as prof:
+        for _ in range(6):
+            kernel()
+            torch.cuda.synchronize()
+            prof.step()
+    by_name = {e.key: e.count / 5 for e in averages[0]
+               if e.device_type == DeviceType.CUDA
+               and not e.key.startswith(("Memcpy", "Memset"))}
+    names = [key for key in by_name if "wkv6_bwd" in key]
+    ours = sum(by_name[key] for key in names)
+    if len(names) != 1 or ours > 1:
+        raise AssertionError(f"wkv6_bwd launched {ours} CUDA kernels of "
+                             f"its own a call, not 1: {by_name}")
     ms = device_ms(torch, kernel, reps=10, samples=3)
     call_ms = host_ms(torch, kernel, reps=10, samples=3)
     plain_ms = ref_s * 1e3      # the last case's, the training shape's
@@ -2339,15 +2399,19 @@ def phase_wkv_bwd(torch, wkv6_bwd, wkv6_bwd_ref):
     bytes_ms, ops_ms = n_bytes / HBM_BYTES_S * 1e3, n_ops / SCALAR_OPS_S * 1e3
     bound_ms = max(bytes_ms, ops_ms)
     log(f"kernel  wkv6_bwd B={b} H={h} T={t} N={n} f32 timed: device "
-        f"{ms:.6f} ms (CUDA graph of 10 calls; two CUDA kernels a call); "
+        f"{ms:.6f} ms (CUDA graph of 10 calls; one CUDA kernel a call); "
         f"per eager call {call_ms:.6f} ms; plain version (autograd of "
         f"wkv6_ref) {plain_ms:.6f} ms, one call; bound {bound_ms:.6f} ms "
         f"({n_bytes} bytes {bytes_ms:.6f} ms, {n_ops} flops at f32 peak "
         f"{ops_ms:.6f} ms); {ms / bound_ms:.3f}x the bound; {_peak(torch)}")
+    log(f"kernel  wkv6_bwd a call: {ours:g} CUDA kernel of its own "
+        f"(torch.profiler; besides it {sum(by_name.values()) - ours:g} "
+        f"PyTorch kernels of du's batch sum); transient scratch {scratch} "
+        f"bytes (max_memory_allocated over a call, the outputs given)")
     return dict(max_abs_err=max_err, ms=ms, host_ms=call_ms,
                 plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                library_ms=None)
+                library_ms=None, scratch_bytes=scratch)
 
 
 # lm-parity's reduced models; recurrentgemma with 5 layers (reduced it has
@@ -3232,7 +3296,8 @@ def main(argv=None) -> int:
     numbers["flash_attention_bwd"] = phase_flash_bwd(
         torch, flash_attention, flash_attention_bwd, attention_bwd_ref,
         attention_lse_ref, _bwd_route)
-    numbers["wkv6_bwd"] = phase_wkv_bwd(torch, wkv6_bwd, wkv6_bwd_ref)
+    numbers["wkv6_bwd"] = phase_wkv_bwd(torch, wkv6_bwd, wkv6_bwd_ref,
+                                        build.BUILD_LOGS)
     torch.cuda.empty_cache()
 
     # 4. the GPU run agrees with the CPU run

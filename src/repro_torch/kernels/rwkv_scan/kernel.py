@@ -31,14 +31,16 @@ launches the kernel or raises.  ``wkv6.launches`` counts kernel launches.
 
 :func:`wkv6_bwd` is the gradient, dr, dk, dv, dw and du, in f32
 (``csrc/wkv6_bwd.cu``; the TPU kernel has no backward, and the reference
-differentiates its ``lax.scan``): a block owns 16 rows of a (b, h)'s
-state, a forward sweep stores the state every :data:`BWD_CHUNK` steps in
+differentiates its ``lax.scan``), one CUDA kernel a call with one CTA a
+(b, h): a forward sweep stores the state every :data:`BWD_CHUNK` steps in
 f32 checkpoints, and a backward sweep recomputes each chunk's states from
-its checkpoint and runs the chunk's steps backwards; dv's row blocks and
-du's batch entries are summed in a fixed order.  It takes f32 only (what
+its checkpoint into registers and runs the chunk's steps backwards, its
+chunks staged with TMA as the forward's.  dv's row sums are summed in
+shared memory, du's batch entries here, each in a fixed order; there is
+no scratch but the checkpoints.  It takes f32 only (what
 ``models/rwkv6.py`` passes) and raises on anything else.
-``wkv6_bwd.launches`` counts its calls (two CUDA kernels each).  For a
-CPU tensor it runs the plain version
+``wkv6_bwd.launches`` counts its calls (one CUDA kernel each).  For a CPU
+tensor it runs the plain version
 (:func:`repro_torch.kernels.rwkv_scan.ref.wkv6_bwd_ref`).
 """
 from __future__ import annotations
@@ -61,7 +63,7 @@ _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
 #: Time steps between the backward's state checkpoints (``kChunk`` in
 #: ``csrc/wkv6_bwd.cu``).
 BWD_CHUNK = 16
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 4
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 4
                  + [ctypes.c_void_p] * 2)
 
 
@@ -154,7 +156,11 @@ def wkv6_bwd(r, k, v, w, u, do, *, grads: tuple | None = None) -> tuple:
     """The gradient of :func:`wkv6`: r/k/v/w [B, H, T, N] (shared strides,
     N contiguous), u [H, N], do [B, H, T, N] the output's gradient ->
     (dr, dk, dv, dw, du) in f32, dr..dw written into ``grads`` (four
-    [B, H, T, N] f32 tensors, N contiguous) when given."""
+    [B, H, T, N] f32 tensors, N contiguous) when given.  On the card one
+    kernel computes dr..dw and du's per-batch partials; its only scratch
+    is the call's checkpoints, B·H·(⌈T/BWD_CHUNK⌉ − 1)·N²·4 bytes; r, k,
+    v, w, do and the four gradients must be TMA-able (16-byte aligned
+    bases and strides), or it raises."""
     _check(r, k, v, w, u, do)
     dev = r.device
     if dev.type == "cpu":
@@ -181,17 +187,20 @@ def wkv6_bwd(r, k, v, w, u, do, *, grads: tuple | None = None) -> tuple:
         for g in grads:
             g.zero_()
         return (*grads, du_part.sum(0) if b else u.new_zeros(u.shape))
+    check_tma((("r", r), ("k", k), ("v", v), ("w", w), ("do", do),
+               *zip(("dr", "dk", "dv", "dw"), grads)))
     n_ck = -(-t // BWD_CHUNK)
-    dv_part = torch.empty((n // 16, b, h, t, n), dtype=torch.float32,
-                          device=dev)
-    ckpt = torch.empty((b, h, n_ck, n, n), dtype=torch.float32, device=dev)
+    # the state at the start of every chunk but the last (the kernel's
+    # forward sweep ends there, and goes on from its registers)
+    ckpt = torch.empty((b, h, max(n_ck - 1, 0), n, n), dtype=torch.float32,
+                       device=dev)
     strides = (ctypes.c_int64 * 18)(*[
         st for x in (r, do, *grads) for st in _strides(x)])
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _bwd_lib().wkv6_bwd_launch(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
         do.data_ptr(), *(g.data_ptr() for g in grads), du_part.data_ptr(),
-        dv_part.data_ptr(), ckpt.data_ptr(), b, h, t, n, strides, stream)
+        ckpt.data_ptr(), b, h, t, n, strides, stream)
     if rc != 0:
         raise RuntimeError(f"wkv6_bwd launch failed: CUDA error {rc}")
     wkv6_bwd.launches += 1
@@ -203,3 +212,23 @@ def wkv6_bwd(r, k, v, w, u, do, *, grads: tuple | None = None) -> tuple:
 
 
 wkv6_bwd.launches = 0
+
+
+def wkv6_bwd_occupancy(n: int) -> dict:
+    """The backward kernel at head size ``n`` on the current card: its
+    dynamic shared memory a CTA and the CTAs an SM holds (CUDA's occupancy
+    calculator)."""
+    vals = [ctypes.c_int() for _ in range(2)]
+    fn = _bwd_lib().wkv6_bwd_occupancy
+    fn.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 2
+    rc = fn(n, *(ctypes.byref(x) for x in vals))
+    if rc != 0:
+        raise RuntimeError(f"wkv6_bwd occupancy query failed: CUDA error {rc}")
+    return dict(zip(("smem_bytes", "ctas_an_sm"), (x.value for x in vals)))
+
+
+def wkv6_bwd_scratch_bytes(b: int, h: int, t: int, n: int) -> int:
+    """Device bytes :func:`wkv6_bwd` allocates for a call on the card
+    besides its outputs: the state checkpoints and du's per-batch
+    partials."""
+    return 4 * (b * h * (-(-t // BWD_CHUNK) - 1) * n * n + b * h * n)

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import tma_able
 from repro_torch.kernels.rwkv_scan.kernel import wkv6, wkv6_bwd
 
 
@@ -30,7 +31,9 @@ def _forward(r, k, v, w, u) -> torch.Tensor:
 
 class WKV6(torch.autograd.Function):
     """o = wkv6(r, k, v, w, u) in the model layout; the backward is K3's
-    backward kernel (f32 gradients, cast to each input's dtype)."""
+    backward kernel (f32 gradients, cast to each input's dtype).  A dO
+    the kernel's TMA cannot read (an expanded or offset gradient) is copied
+    first, so the backward always launches the kernel on a CUDA tensor."""
 
     @staticmethod
     def forward(ctx, r, k, v, w, u):
@@ -40,8 +43,9 @@ class WKV6(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         r, k, v, w, u = ctx.saved_tensors
-        if do.stride(-1) != 1:
-            do = do.contiguous()
+        if not tma_able(do):
+            do = torch.empty(do.shape, dtype=do.dtype,
+                             device=do.device).copy_(do)
         grads = tuple(torch.empty(r.shape, dtype=torch.float32,
                                   device=r.device) for _ in range(4))
         *_, du = wkv6_bwd(*_time_second(r, k, v, w), u,

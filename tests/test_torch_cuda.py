@@ -763,15 +763,23 @@ def test_flash_attention_autograd_runs_the_wgmma_backward_kernels():
         close(t(x.grad), w, *BWD_TOL["bfloat16"])
 
 
-@pytest.mark.parametrize("b,h,t,n", [(2, 3, 1, 16), (2, 3, 15, 16),
-                                     (1, 2, 17, 32), (2, 2, 40, 64),
-                                     (1, 32, 67, 64)])
-def test_wkv6_bwd_kernel_matches_plain_version(b, h, t, n):
+@pytest.mark.parametrize("b,h,t,n,small_w", [
+    (2, 3, 1, 16, False), (2, 3, 15, 16, False), (1, 2, 17, 32, False),
+    (2, 2, 40, 64, False), (1, 32, 67, 64, False),
+    # every head size past two 16-step checkpoints, and decays in
+    # [0, 0.05) with exact zeros
+    (2, 3, 40, 16, False), (1, 2, 50, 32, False), (2, 4, 70, 64, True)])
+def test_wkv6_bwd_kernel_matches_plain_version(b, h, t, n, small_w):
     """Each gradient within 1e-4 · max(1, max|g|) (f32 sums in other
     orders); a rerun gives the same bits."""
     from repro_torch.kernels.rwkv_scan.kernel import wkv6_bwd
     from repro_torch.kernels.rwkv_scan.ref import wkv6_bwd_ref
     args = wkv_inputs(b * t + n, b, h, t, n, "float32")
+    if small_w:
+        rng = np.random.default_rng(t)
+        w = rng.random((b, h, t, n)) * 0.05
+        w[rng.random(w.shape) < 0.1] = 0.0
+        args[3] = torch.from_numpy(w.astype(np.float32)).cuda()
     do = torch.from_numpy(np.random.default_rng(t).standard_normal(
         (b, h, t, n)).astype(np.float32)).cuda()
     n0 = wkv6_bwd.launches
@@ -782,6 +790,27 @@ def test_wkv6_bwd_kernel_matches_plain_version(b, h, t, n):
     assert wkv6_bwd.launches == n0 + 2
     for g, a, w in zip(got, again, want):
         assert torch.equal(g, a)
+        close(g, w, 1e-4 * max(1.0, float(w.abs().max())), 0.0)
+
+
+def test_wkv6_backward_copies_an_expanded_gradient():
+    """``sum().backward()`` gives the model-layout WKV6 an expanded dO (stride
+    0), which TMA cannot read: the backward copies it and still launches
+    the kernel, matching the plain version on an all-ones dO."""
+    from repro_torch.kernels.rwkv_scan.kernel import wkv6_bwd
+    from repro_torch.kernels.rwkv_scan.ops import wkv6_seq
+    from repro_torch.kernels.rwkv_scan.ref import wkv6_bwd_ref
+    args = wkv_inputs(11, 2, 3, 40, 64, "float32")
+    leaves = [x.transpose(1, 2).contiguous().requires_grad_(True)
+              for x in args[:4]]
+    leaves.append(args[4].clone().requires_grad_(True))
+    n0 = wkv6_bwd.launches
+    wkv6_seq(*leaves).sum().backward()
+    torch.cuda.synchronize()
+    assert wkv6_bwd.launches == n0 + 1
+    want = wkv6_bwd_ref(*args, torch.ones_like(args[0]))
+    got = [x.grad.transpose(1, 2) for x in leaves[:4]] + [leaves[4].grad]
+    for g, w in zip(got, want):
         close(g, w, 1e-4 * max(1.0, float(w.abs().max())), 0.0)
 
 

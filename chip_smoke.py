@@ -115,7 +115,23 @@ differ from the counts above.
 16. train-recurrentgemma-2b — the same at 1 × 4096 tokens with each
    super-block rematerialised, K2's launches (16 forward, twice the 8
    backward, a step, all on ``wgmma``), without the checkpoint's save,
-   restore and resume (the cells above show them bit for bit).
+   restore and resume (the cells above show them bit for bit);
+17. train-smollm-135m-sharded — ``launch/train.py``'s sharded step over a
+   (data 2, model 2) mesh of four gloo ranks on the card
+   (``start_mesh``): a reduced f32 smollm's sharded step on the card ==
+   ``make_train_step`` on the CPU within 1e-4; then smollm-135m at full
+   width in bf16, train-smollm-135m's batches (1 × 4096 a rank): ``run``
+   on the mesh for 3 steps with a checkpoint at step 3 (rank 0 saves the
+   gathered tree and restores it into a single-device model, bit for bit
+   against the gathered weights and moments), ``elastic.drop_devices``
+   of 2 ranks to (1, 2), ``reshard_params`` of the weights and both
+   moments, and a fourth step on the survivors; each step's loss and
+   grad norm within ``SHARDED_TRAIN_RTOL`` of train-smollm-135m's (and
+   the bf16 embedding gradient's own spread on the batch's tokens), its
+   seconds, tokens/s and seconds in the gather and in the gradient
+   all-reduce, the reshard's seconds, K2's launches (30 forward and 30
+   backward a step on every rank, all on ``wgmma``) and each rank's peak
+   memory.
 
 Phase 3 also holds K2's and K3's backward kernels against their plain
 versions' autograd (f32 and bf16, Sq != Sk, rows that see no key; a rerun
@@ -149,13 +165,13 @@ import time
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
 
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, the float32 rate
 #: outside the tensor cores (the leaf search's compares, the WKV6
 #: recurrence) and the dense bf16 tensor-core rate (attention).
-HBM_BYTES_S = 3.35e12
-SCALAR_OPS_S = 67e12
-BF16_TENSOR_OPS_S = 989e12
+from repro_torch.launch.mesh import (BF16_TENSOR_OPS_S,  # noqa: E402
+                                     HBM_BYTES_S, SCALAR_OPS_S)
 
 KERNEL_SHAPES = [(256, 8), (512, 16), (128, 32), (256, 64),   # kernel test
                  (512, 16), (1024, 16), (1000, 16)]           # main path
@@ -2642,7 +2658,7 @@ def phase_train(torch, get, registry, train, adamw, data, fa, fa_bwd, wkv,
     profiled; then ``run`` resumed from the checkpoint, whose step must
     give the fifth step's loss.  A cell whose last field is False saves no
     checkpoint and skips the restore and the resume.  Returns the run's
-    kernel launches by kernel."""
+    kernel launches by kernel and its losses and grad norms a step."""
     import tempfile
     from repro_torch.checkpoint import CheckpointManager
     tag, name, b, s, bwd_name, per_step, ckpt = cell
@@ -2696,6 +2712,7 @@ def phase_train(torch, get, registry, train, adamw, data, fa, fa_bwd, wkv,
                                      f"launches by route {bwd}, expected "
                                      f"{steps * per_step} on wgmma")
         losses, secs = out["losses"], out["step_seconds"]
+        curve = dict(losses=losses, grad_norms=out["grad_norms"])
         if len(losses) != steps or not all(map(math.isfinite, losses)):
             raise AssertionError(f"{tag} train: losses {losses}")
         timed_s = sum(secs[1:])
@@ -2747,7 +2764,7 @@ def phase_train(torch, get, registry, train, adamw, data, fa, fa_bwd, wkv,
             raise AssertionError(f"{tag} train: step {steps + 1} loss "
                                  f"{next_loss}")
         if not ckpt:
-            return launches
+            return launches, curve
         # resume from the checkpoint: run() restores it and takes step 5 on
         # the same batch
         out = train.run(api, dataclasses.replace(tc, steps=steps + 1),
@@ -2767,7 +2784,332 @@ def phase_train(torch, get, registry, train, adamw, data, fa, fa_bwd, wkv,
            f"differ by {diff} (the restored state is bit for bit the "
            "saved one, so the forward differs between the two processes' "
            "runs)"))
-    return launches
+    return launches, curve
+
+
+# --------------------------------------------------------------------------
+# train-smollm-135m-sharded: the training step over a mesh of gloo ranks
+# --------------------------------------------------------------------------
+
+#: the cell's mesh (data 2, model 2: four gloo ranks on the one card),
+#: its batch (train-smollm-135m's 4 x 4096), steps before and after the
+#: drop of 2 ranks, and the reduced f32 check's batch
+SHARDED_TRAIN_MESH = (2, 2)
+SHARDED_TRAIN_STEPS = 3
+SHARDED_TRAIN_DROP = 2
+SHARDED_TRAIN_REDUCED = (4, 64)
+#: bf16 tolerances of the sharded steps against train-smollm-135m's, each
+#: relative to the single-device value (u = 2^-8, bf16's unit roundoff).
+#: The two runs differ only in the order of sums and in where values round
+#: to bf16: a weight gradient reduced over 16,384 tokens and rounded once,
+#: against four ranks' reductions over 4,096 each rounded once and summed
+#: in f32.  The loss (an f32 mean) sees at step 1 the same weights and the
+#: forward's sums in another order, u at most, and at the later steps
+#: weights that AdamW's normalised update moved by at most 2 lr apart,
+#: another u: 2u.  The grad norm also carries the embedding gather's
+#: gradient, which PyTorch accumulates a duplicate token at a time in the
+#: weight's dtype, rounding to bf16 at every addition: the batch's most
+#: frequent token (1,083 of 16,384 at seed 0) carries 1,083 roundings in
+#: one run, ~270 a rank in the other, an rms error of about
+#: u·sqrt(n/3) of the row (0.074 at n = 1,083), shrinking over the rarer
+#: rows; weighted over the gradient, 8u = 2^-5 bounds the norm's share.
+#: ``embedding_grad_spread`` measures that accumulation on the card, on
+#: this batch's tokens.
+SHARDED_TRAIN_RTOL = dict(loss=2.0 ** -7, grad_norm=2.0 ** -5)
+
+
+def train_sharded_rank(mesh, ckdir, matmul):
+    """A rank of train-smollm-135m-sharded.  First a reduced f32 smollm:
+    one sharded step on the card against ``make_train_step`` on the CPU
+    from the same weights and batch (loss, grad norm and the gathered
+    weights after the update, within 1e-4).  Then the cell at full width
+    in bf16: ``run`` for ``SHARDED_TRAIN_STEPS`` steps with a checkpoint
+    at the last (rank 0 saves the gathered reference tree, then restores
+    it into a single-device model and holds it bit for bit against the
+    gathered weights and moments), ``drop_devices`` of
+    ``SHARDED_TRAIN_DROP`` ranks, the weights and both moments resharded,
+    and one step on the survivors.  K2's launches are counted from just
+    before the full-width run to its end.  ``matmul``: the launcher's
+    cuBLAS settings, so the ranks compute what it computes."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = matmul["tf32"]
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+        matmul["bf16_reduced"]
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get, get_reduced
+    from repro_torch.data.tokens import synthetic_batches
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention, flash_attention_bwd)
+    from repro_torch.launch import elastic, train
+    from repro_torch.launch.mesh import Collectives
+    from repro_torch.models import registry
+    from repro_torch.models.common import flat_params
+    from repro_torch.optim import adamw
+    opt = adamw.AdamWConfig(**TRAIN_OPT)
+    out = dict(rank=mesh.rank)
+
+    # 1. reduced f32: the sharded step on the card == one CPU device
+    cfg = get_reduced("smollm-135m")
+    cpu, gpu = registry.build(cfg, device="cpu"), registry.build(cfg)
+    model_cpu = cpu.init(torch.Generator().manual_seed(0))
+    model_gpu = copy.deepcopy(model_cpu).to(mesh.device)
+    b, s = SHARDED_TRAIN_REDUCED
+    batch = {k: torch.from_numpy(v) for k, v in next(synthetic_batches(
+        cfg, b, s, seed=1)).items()}
+    step, _ = train.shard_train_fns(gpu, mesh, model_gpu, None, batch, opt)
+    params, state = step.shard_params(), step.shard_opt()
+    _, _, m = step(params, state, {k: v.to(mesh.device)
+                                   for k, v in batch.items()})
+    step.gather_params(params)
+    flat = flat_params(cpu.param_tree(model_cpu))
+    _, _, want = train.make_train_step(cpu, opt)(
+        model_cpu, adamw.init(flat), batch)
+    errs = {k: _check_close(torch, m[k].cpu(), want[k], 1e-4, 1e-4,
+                            f"sharded reduced rank {mesh.rank} {k}")
+            for k in ("loss", "grad_norm")}
+    errs["params"] = max(
+        _check_close(torch, g.detach().cpu(), c.detach(), 1e-4, 1e-4,
+                     f"sharded reduced rank {mesh.rank} weight")
+        for g, c in zip(flat_params(gpu.param_tree(model_gpu)), flat))
+    out["reduced"] = dict(errs=errs, loss=float(want["loss"]))
+    del model_cpu, model_gpu, step, params, state, m
+
+    # 2. the cell at full width
+    cfg = get("smollm-135m")
+    api = registry.build(cfg)
+    bsz, seq = TRAIN_CELLS[0][2], TRAIN_CELLS[0][3]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in (flash_attention, flash_attention_bwd):
+        fn.launches = fn.launches_wgmma = fn.launches_fma = 0
+    steps = SHARDED_TRAIN_STEPS
+    tc = train.TrainConfig(steps=steps, log_every=1, ckpt_every=steps,
+                           ckpt_dir=ckdir, keep=1, opt=opt)
+    run = train.run(api, tc, mesh=mesh, batch_size=bsz, seq=seq, seed=0)
+    torch.cuda.synchronize()
+    out.update(losses=run["losses"], grad_norms=run["grad_norms"],
+               step_s=run["step_seconds"], coll=run["collective_seconds"])
+    model, params, state = run["params"], run["shards"], run["opt_state"]
+    del run
+    # the checkpoint == the gathered state, bit for bit, in a single-device
+    # model (rank 0; every rank gathers the moments)
+    comm = Collectives(mesh)
+    whole_m, whole_v = train.gather(state.m, comm), train.gather(state.v,
+                                                                 comm)
+    if mesh.rank == 0:
+        t0 = time.perf_counter()
+        one = api.init(torch.Generator(device="cuda").manual_seed(1))
+        flat_one = flat_params(api.param_tree(one))
+        st_one = train.load_checkpoint(
+            api, one, adamw.init(flat_one), CheckpointManager(ckdir).restore(
+                train.checkpoint_template(api, one), steps))
+        live = flat_params(api.param_tree(model))
+        pairs = list(zip(flat_one + st_one.m + st_one.v,
+                         live + whole_m + whole_v))
+        same = sum(same_bits(torch, a.detach(), b.detach().to(a.device))
+                   for a, b in pairs)
+        if same != len(pairs) or int(st_one.step) != int(state.step):
+            raise AssertionError(f"sharded checkpoint: {same} of "
+                                 f"{len(pairs)} tensors equal the gathered "
+                                 "state")
+        out["ckpt"] = dict(tensors=len(pairs), restore_s=time.perf_counter()
+                           - t0, bytes=sum(
+                               os.path.getsize(os.path.join(dp, f))
+                               for dp, _, fs in os.walk(ckdir) for f in fs))
+        del one, flat_one, st_one, pairs
+    del whole_m, whole_v
+    # lose the last ranks; the weights and moments move to the survivors
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    new = elastic.drop_devices(mesh, SHARDED_TRAIN_DROP)
+    params = elastic.reshard_params(params, new)
+    state = state._replace(m=elastic.reshard_params(state.m, new),
+                           v=elastic.reshard_params(state.v, new))
+    torch.cuda.synchronize()
+    out.update(reshard_s=time.perf_counter() - t0, new_shape=dict(new.shape),
+               new_coords=new.coords)
+    if new.coords is not None:
+        batch = {k: torch.as_tensor(v).to(mesh.device) for k, v in next(
+            synthetic_batches(cfg, bsz, seq, seed=0, skip=steps)).items()}
+        step, _ = train.shard_train_fns(api, new, model, None, batch, opt)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        out.update(loss4=float(m["loss"]), grad_norm4=float(m["grad_norm"]),
+                   step4_s=time.perf_counter() - t0,
+                   coll4=dict(step.comm.seconds), step4=int(state.step))
+    torch.cuda.synchronize()
+    out.update(fwd=dict(n=flash_attention.launches,
+                        wgmma=flash_attention.launches_wgmma,
+                        fma=flash_attention.launches_fma),
+               bwd=dict(n=flash_attention_bwd.launches,
+                        wgmma=flash_attention_bwd.launches_wgmma,
+                        fma=flash_attention_bwd.launches_fma),
+               peak=torch.cuda.max_memory_allocated())
+    return out
+
+
+def embedding_grad_spread(torch, bsz: int, seq: int, ranks: int) -> dict:
+    """The rounding of the embedding gather's gradient in bf16 on the card:
+    ``embed[tokens]``'s gradient over train-smollm-135m's first batch, in
+    f32, in bf16 as one pass, and in bf16 a rank's rows at a time summed
+    in f32; returns the relative errors of the two against f32 (norms of
+    the differences over the f32 gradient's norm), the two norms' relative
+    difference, and the most frequent token's count."""
+    from repro_torch.configs import get
+    from repro_torch.data.tokens import synthetic_batches
+    cfg = get("smollm-135m")
+    tok = torch.from_numpy(next(synthetic_batches(cfg, bsz, seq, seed=0))[
+        "tokens"]).long().cuda()
+    up = torch.randn((bsz, seq, cfg.d_model), device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(2)
+                     ) * 1e-3
+
+    def grad(rows, dtype):
+        e = torch.zeros((cfg.vocab, cfg.d_model), dtype=dtype, device="cuda",
+                        requires_grad=True)
+        (e[tok[rows]] * up[rows].to(dtype)).sum().backward()
+        return e.grad.float()
+    whole = slice(0, bsz)
+    ref = grad(whole, torch.float32)
+    one = grad(whole, torch.bfloat16)
+    per = bsz // ranks
+    parts = sum(grad(slice(i * per, (i + 1) * per), torch.bfloat16)
+                for i in range(ranks))
+    norm = lambda x: float(x.norm())
+    return dict(one=norm(one - ref) / norm(ref),
+                parts=norm(parts - ref) / norm(ref),
+                norms=abs(norm(parts) - norm(one)) / norm(one),
+                n_max=int(torch.bincount(tok.reshape(-1)).max()))
+
+
+def f32_first_grad_norm(torch, bsz: int, seq: int) -> float:
+    """Step 1's gradient norm in f32: train-smollm-135m's seed-0 bf16
+    weights as f32, its first batch a row at a time (each row's loss a
+    mean over its tokens, the rows' f32 gradients averaged)."""
+    from repro_torch.configs import get
+    from repro_torch.data.tokens import synthetic_batches
+    from repro_torch.models import registry
+    from repro_torch.models.common import flat_params
+    from repro_torch.optim import adamw
+    cfg = get("smollm-135m")
+    model = registry.build(cfg).init(
+        torch.Generator(device="cuda").manual_seed(0)).float()
+    api = registry.build(dataclasses.replace(cfg, dtype=torch.float32))
+    params = flat_params(api.param_tree(model))
+    total = [torch.zeros_like(p, dtype=torch.float32) for p in params]
+    batch = next(synthetic_batches(cfg, bsz, seq, seed=0))
+    for r in range(bsz):
+        api.loss(model, {k: torch.from_numpy(v[r:r + 1]).cuda()
+                         for k, v in batch.items()}).backward()
+        for t, p in zip(total, params):
+            if p.grad is not None:
+                t += p.grad
+            p.grad = None
+    return float(adamw.global_norm([t / bsz for t in total]))
+
+
+def phase_train_sharded(torch, single: dict, gpu: str) -> dict:
+    """train-smollm-135m-sharded: four gloo ranks on the card
+    (``train_sharded_rank``).  Raises unless the reduced f32 step matched
+    the CPU, every step's loss and grad norm are train-smollm-135m's
+    (``single``: its run's losses and grad norms) within
+    ``SHARDED_TRAIN_RTOL``, the checkpoint restored bit for bit, and K2's
+    forward and backward launched 30 times a step on every rank, all on
+    ``wgmma``.  Returns K2's forward and backward launches over the
+    ranks."""
+    import tempfile
+    from repro_torch.launch.mesh import start_mesh
+    gc.collect()
+    torch.cuda.empty_cache()
+    data, model = SHARDED_TRAIN_MESH
+    steps = SHARDED_TRAIN_STEPS
+    bsz, seq = TRAIN_CELLS[0][2], TRAIN_CELLS[0][3]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="train_sharded_") as ckdir, \
+            CardMemory(torch) as card:
+        log(f"sharded-train smollm-135m over mesh ({data}, {model}): "
+            f"{data * model} gloo ranks on one card, {bsz} x {seq} tokens a "
+            f"step ({bsz // (data * model)} x {seq} a rank), AdamW "
+            f"{TRAIN_OPT}; {steps} steps with a checkpoint at step {steps} "
+            f"in {ckdir}, then {SHARDED_TRAIN_DROP} ranks dropped and one "
+            f"step on the survivors ({gpu})")
+        matmul = dict(tf32=torch.backends.cuda.matmul.allow_tf32,
+                      bf16_reduced=torch.backends.cuda.matmul
+                      .allow_bf16_reduced_precision_reduction)
+        res = start_mesh(train_sharded_rank, data, model, backend="gloo",
+                         args=(ckdir, matmul),
+                         timeout=SHARDED_TIMEOUT).join()
+    phase_s = time.perf_counter() - t0
+    r0 = res[0]
+    log(f"sharded-train reduced smollm-135m (f32, {SHARDED_TRAIN_REDUCED[0]}"
+        f" x {SHARDED_TRAIN_REDUCED[1]}): one sharded step on {data * model}"
+        f" ranks on the card == make_train_step on the CPU within 1e-4 (loss"
+        f" {r0['reduced']['loss']:.6f}); max abs errors by rank "
+        f"{[r['reduced']['errs'] for r in res]}")
+    got = list(zip(r0["losses"], r0["grad_norms"])) + \
+        [(r0["loss4"], r0["grad_norm4"])]
+    want = list(zip(single["losses"], single["grad_norms"]))[:steps + 1]
+    rel = [dict(zip(("loss", "grad_norm"), (abs(g - w) / abs(w)
+                                            for g, w in zip(gs, ws))))
+           for gs, ws in zip(got, want)]
+    tokens = bsz * seq
+    for i, ((loss, gn), (wl, wg), r) in enumerate(zip(got, want, rel)):
+        if i < steps:
+            secs, coll = r0["step_s"][i], r0["coll"][i]
+        else:
+            secs, coll = r0["step4_s"], r0["coll4"]
+        log(f"sharded-train step {i + 1} on mesh "
+            f"{SHARDED_TRAIN_MESH if i < steps else tuple(r0['new_shape'].values())}"
+            f": loss {loss!r} (train-smollm-135m's {wl!r}), grad norm "
+            f"{gn!r} ({wg!r}), relative differences {r['loss']:.3e} and "
+            f"{r['grad_norm']:.3e} (tolerances {SHARDED_TRAIN_RTOL['loss']:.3e}"
+            f" and {SHARDED_TRAIN_RTOL['grad_norm']:.3e}); {secs:.3f} s, "
+            f"{tokens / secs:.1f} tokens/s; gather {coll['gather']:.3f} s, "
+            f"gradient all-reduce {coll['all_reduce']:.3f} s (rank 0, host "
+            f"clock; {gpu})")
+    if any(r[k] > SHARDED_TRAIN_RTOL[k] for r in rel for k in r):
+        raise AssertionError(f"sharded-train: relative differences {rel} "
+                             f"beyond {SHARDED_TRAIN_RTOL}")
+    gn32 = f32_first_grad_norm(torch, bsz, seq)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"sharded-train step 1's grad norm in f32 {gn32!r} (the same "
+        f"weights and batch, row by row): train-smollm-135m's is "
+        f"{abs(want[0][1] - gn32) / gn32:.3e} from it, the sharded run's "
+        f"{abs(got[0][1] - gn32) / gn32:.3e} ({gpu})")
+    spread = embedding_grad_spread(torch, bsz, seq, data * model)
+    log(f"sharded-train bf16's own spread: the embedding gather's gradient "
+        f"over this batch's tokens (its most frequent {spread['n_max']} of "
+        f"{tokens}; a random normal upstream gradient of std 1e-3, seed 2) in bf16 "
+        f"is {spread['one']:.3e} from f32 as one pass, {spread['parts']:.3e} "
+        f"as {data * model} rank partials summed in f32; the two norms "
+        f"differ by {spread['norms']:.3e} relative ({gpu})")
+    ck = r0["ckpt"]
+    log(f"sharded-train checkpoint step {steps}: {ck['bytes']} bytes saved "
+        f"by rank 0; restored into a single-device model in "
+        f"{ck['restore_s']:.3f} s, all {ck['tensors']} tensors (bf16 "
+        f"weights, f32 moments) equal the gathered blocks bit for bit")
+    log(f"sharded-train drop {SHARDED_TRAIN_DROP} ranks: mesh "
+        f"{SHARDED_TRAIN_MESH} -> {tuple(r0['new_shape'].values())}, "
+        f"coordinates {[r['new_coords'] for r in res]}; reshard of the "
+        f"weights and both moments {max(r['reshard_s'] for r in res):.3f} s "
+        f"(host clock, slowest rank; {gpu})")
+    fwd, bwd = [], []
+    for r in res:
+        n = steps + (r["new_coords"] is not None)
+        expect = {"n": 30 * n, "wgmma": 30 * n, "fma": 0}
+        if r["fwd"] != expect or r["bwd"] != expect:
+            raise AssertionError(f"sharded-train rank {r['rank']}: K2 "
+                                 f"launches {r['fwd']}, backward "
+                                 f"{r['bwd']}, expected {expect} each")
+        fwd.append(r["fwd"]["n"])
+        bwd.append(r["bwd"]["n"])
+    log(f"sharded-train K2 launches per rank: forward {fwd}, backward "
+        f"{bwd} (30 a step each, every one on wgmma); max_memory_allocated "
+        f"per rank {[r['peak'] for r in res]}; card peak used {card.peak} "
+        f"(sampled every {card.every_s} s); phase {phase_s:.3f} s ({gpu})")
+    return {"flash_attention": sum(fwd), "flash_attention_bwd": sum(bwd)}
 
 
 # --------------------------------------------------------------------------
@@ -3240,7 +3582,6 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
-    sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.configs import get, get_reduced
     from repro_torch.kernels import build
     from repro_torch.data import tokens as data
@@ -3361,11 +3702,12 @@ def main(argv=None) -> int:
     # all its launches took wgmma)
     fa_bwd_routes = {"lm_parity_train": parity_routes}
     wkv_paths = {"rwkv_forward": launches["wkv6"]}
+    curves = {}
     for cell in TRAIN_CELLS:
         tag, bwd_name = cell[0], cell[4]
         gc.collect()
         torch.cuda.empty_cache()
-        run_launches = phase_train(
+        run_launches, curves[tag] = phase_train(
             torch, get, registry, train, adamw, data, flash_attention,
             flash_attention_bwd, wkv6, wkv6_bwd, cell)
         path = f"{tag}_train"
@@ -3380,6 +3722,15 @@ def main(argv=None) -> int:
                                    "fma": 0}
         else:
             wkv_paths[path] = run_launches["wkv6"]
+    # 17. train-smollm-135m-sharded: four gloo ranks, a drop, a reshard
+    sharded_k2 = phase_train_sharded(torch, curves["smollm"], line)
+    path = "smollm_sharded_train"
+    flash_paths[path] = {"wgmma": sharded_k2["flash_attention"], "fma": 0}
+    bwd_paths["flash_attention_bwd"][path] = \
+        sharded_k2["flash_attention_bwd"]
+    fa_bwd_routes[path] = {"wgmma": sharded_k2["flash_attention_bwd"],
+                           "fma": 0}
+    launches["flash_attention_bwd"] += sharded_k2["flash_attention_bwd"]
     for bwd_name, paths in bwd_paths.items():
         paths["lm_parity_train"] = parity_bwd[bwd_name]
 

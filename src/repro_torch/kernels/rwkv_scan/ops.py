@@ -9,10 +9,18 @@ forward launch and, for the backward,
 :func:`~repro_torch.kernels.rwkv_scan.kernel.wkv6_bwd` (the backward
 kernel on a CUDA tensor, the plain version's autograd on a CPU tensor);
 without one (the serving paths) no autograd node is made.
+
+On fake tensors (``FakeTensorMode``: shapes only, as the dry-run planner
+traces a rank's program) neither direction traces the recurrence, a
+Python loop over time in the plain version: the outputs are made, the
+kernel is not called, and the planner adds the recurrence's known cost
+(``launch/dryrun.py::_rwkv_time_corrected``, as the reference adds it to
+a scan XLA counts once).
 """
 from __future__ import annotations
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from repro_torch.kernels import tma_able
 from repro_torch.kernels.rwkv_scan.kernel import wkv6, wkv6_bwd
@@ -25,7 +33,8 @@ def _time_second(*xs):
 
 def _forward(r, k, v, w, u) -> torch.Tensor:
     out = torch.empty(r.shape, dtype=torch.float32, device=r.device)
-    wkv6(*_time_second(r, k, v, w), u, out=out.transpose(1, 2))
+    if not isinstance(r, FakeTensor):
+        wkv6(*_time_second(r, k, v, w), u, out=out.transpose(1, 2))
     return out
 
 
@@ -43,13 +52,16 @@ class WKV6(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         r, k, v, w, u = ctx.saved_tensors
-        if not tma_able(do):
-            do = torch.empty(do.shape, dtype=do.dtype,
-                             device=do.device).copy_(do)
         grads = tuple(torch.empty(r.shape, dtype=torch.float32,
                                   device=r.device) for _ in range(4))
-        *_, du = wkv6_bwd(*_time_second(r, k, v, w), u,
-                          do.transpose(1, 2), grads=_time_second(*grads))
+        if isinstance(r, FakeTensor):
+            du = torch.empty(u.shape, dtype=torch.float32, device=u.device)
+        else:
+            if not tma_able(do):
+                do = torch.empty(do.shape, dtype=do.dtype,
+                                 device=do.device).copy_(do)
+            *_, du = wkv6_bwd(*_time_second(r, k, v, w), u,
+                              do.transpose(1, 2), grads=_time_second(*grads))
         return tuple(g.to(x.dtype) for g, x in zip((*grads, du),
                                                     (r, k, v, w, u)))
 

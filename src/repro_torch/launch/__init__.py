@@ -1,10 +1,12 @@
 """Launch helpers of the PyTorch port.
 
 The host mesh (:mod:`repro_torch.launch.mesh`): a ``(data, model)`` grid
-of ``torch.distributed`` ranks, and the launcher that starts them; and
-the training launcher on one device (:mod:`repro_torch.launch.train`,
-imported by name).  The reference's production mesh, sharded train step,
-``dryrun``, ``shapes`` and ``elastic`` are ROADMAP items 14e–14g.
+of ``torch.distributed`` ranks, the launcher that starts them, the
+production mesh's shape and the H100's rates; imported by name: the
+training launcher and its sharded step (:mod:`repro_torch.launch.train`),
+elastic re-meshing (:mod:`~repro_torch.launch.elastic`), the shape
+cells (:mod:`~repro_torch.launch.shapes`) and the dry-run planner
+(:mod:`~repro_torch.launch.dryrun`).
 """
 from repro_torch.launch.mesh import (Mesh, MeshRanks, make_host_mesh,
                                      run_mesh, start_mesh)

@@ -15,11 +15,23 @@ per *mem row* (the ranks of one ``data`` index, over which the reference's
 and run one function on each.  They rendezvous through a file in a fresh
 temporary directory, so concurrent launches never race for a port, and
 take the backend by name: nothing is chosen by catching a failure.  One
-card cannot hold two NCCL ranks, so a mesh on one card runs on ``gloo``,
-whose CUDA side takes ``broadcast``, ``all_reduce`` and ``barrier``.
+card cannot hold two NCCL ranks, so a mesh on one card runs on ``gloo``.
 
-The reference's production mesh (the 16 x 16 TPU pod) and its hardware
-constants come with the LM scaffold; nothing of them is carried over.
+What gloo takes (``python scripts/gloo_probe.py``; torch 2.13.0+cpu on
+CPU tensors, torch 2.11.0+cu128 on an H100's): ``all_reduce``,
+``broadcast``, ``all_gather_into_tensor``, ``all_gather``,
+``reduce_scatter_tensor`` and ``all_to_all_single``, each in float32,
+bfloat16, int32 and uint8, on CPU and CUDA tensors alike.
+:class:`Collectives`, the sharded train step's transport, so takes one
+path on either device: an ``all_gather_into_tensor`` of raw bytes for
+the weights (which come back bit for bit), an ``all_reduce`` in float32
+for the gradients.
+
+:func:`make_production_mesh` is the reference's mesh as a shape only (no
+process is started; the dry-run planner counts one rank's program on
+it), and the module holds the H100 SXM's data-sheet rates that the
+roofline and the kernels' bounds divide by.  No TPU constant is carried
+over.
 """
 from __future__ import annotations
 
@@ -33,13 +45,22 @@ import traceback
 from collections import OrderedDict
 from datetime import timedelta
 from multiprocessing.reduction import ForkingPickler
-from typing import Callable, Optional
+from typing import Any, Callable, Optional
 
 import torch
 import torch.distributed as dist
 import torch.multiprocessing
 
 from repro_torch.device import resolve_device
+
+#: NVIDIA H100 SXM data sheet (dense rates, 700 W): HBM bytes/s, the
+#: float32 rate outside the tensor cores, the bf16 tensor-core rate, and
+#: NVLink 4's bytes/s a direction (900 GB/s both ways), the counterpart of
+#: the reference's ICI term.
+HBM_BYTES_S = 3.35e12
+SCALAR_OPS_S = 67e12
+BF16_TENSOR_OPS_S = 989e12
+NVLINK_BYTES_S = 450e9
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -53,13 +74,24 @@ class Mesh:
     row_groups: tuple                # per data index: ranks (i, 0..m-1)
     col_groups: tuple                # per model index: ranks (0..d-1, j)
     parent: Optional[object] = None  # the launcher's queue (start_mesh)
+    ranks: Optional[tuple] = None    # world rank of each position, row-
+                                     # major; None: position p is rank p
+    group: Any = None                # the mesh's ranks; None: the world
+
+    @property
+    def axis_names(self) -> tuple:
+        return tuple(self.shape)
 
     @property
     def size(self) -> int:
-        return self.shape["data"] * self.shape["model"]
+        n = 1
+        for v in self.shape.values():
+            n *= v
+        return n
 
     def rank_of(self, data: int, model: int) -> int:
-        return data * self.shape["model"] + model
+        p = data * self.shape["model"] + model
+        return p if self.ranks is None else self.ranks[p]
 
     def axis_index(self, name: str) -> int:
         """This rank's index along ``name`` (``lax.axis_index``)."""
@@ -99,12 +131,73 @@ def make_host_mesh(data: int = 1, model: int = 1, device=None) -> Mesh:
                  for i in range(data))
     cols = tuple(dist.new_group([i * model + j for i in range(data)])
                  for j in range(model))
+    group = None if data * model == n else dist.new_group(
+        list(range(data * model)))
     r = dist.get_rank()
     coords = dict(data=r // model, model=r % model) \
         if r < data * model else None
     return Mesh(shape=OrderedDict(data=data, model=model), rank=r,
                 coords=coords, device=_rank_device(device), row_groups=rows,
-                col_groups=cols)
+                col_groups=cols, group=group)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The reference's production mesh as a shape: ``(16, 16)`` over
+    ``("data", "model")``, or ``(2, 16, 16)`` with ``pod`` in front; rank
+    0's view (every coordinate 0), on ``meta``, with no process group.
+    Nothing is started: it exists for the dry-run planner."""
+    shape = OrderedDict(pod=2, data=16, model=16) if multi_pod else \
+        OrderedDict(data=16, model=16)
+    return Mesh(shape=shape, rank=0, coords={a: 0 for a in shape},
+                device=torch.device("meta"), row_groups=(), col_groups=())
+
+
+# --------------------------------------------------------------------------
+# the sharded train step's collectives
+# --------------------------------------------------------------------------
+
+class Collectives:
+    """The collectives of the sharded train step on this rank of ``mesh``:
+    :meth:`gather_model` (an all-gather over the rank's ``model`` row) and
+    :meth:`all_reduce` (a sum over the whole mesh).  Each call's host
+    seconds (the card synchronised before and after) add up in
+    ``seconds``."""
+
+    def __init__(self, mesh: Mesh):
+        self.mesh = mesh
+        self.seconds = {"gather": 0.0, "all_reduce": 0.0}
+
+    def _timed(self, kind: str, t: torch.Tensor, fn) -> None:
+        if t.is_cuda:
+            torch.cuda.synchronize(t.device)
+        t0 = time.perf_counter()
+        fn()
+        if t.is_cuda:
+            torch.cuda.synchronize(t.device)
+        self.seconds[kind] += time.perf_counter() - t0
+
+    def gather_model(self, row: torch.Tensor) -> torch.Tensor:
+        """``[m, *row.shape]``: row ``j`` is the ``row`` of the rank at
+        model index ``j`` of this rank's data index."""
+        m = self.mesh.shape["model"]
+        if m == 1:
+            return row[None]
+        out = row.new_empty((m * row.numel(),))
+        self._timed("gather", row, lambda: dist.all_gather_into_tensor(
+            out, row.contiguous().view(-1), group=self.mesh.mem_group))
+        return out.view((m,) + tuple(row.shape))
+
+    def barrier(self) -> None:
+        """Every rank of the mesh has reached this call."""
+        if self.mesh.size > 1:
+            dist.barrier(group=self.mesh.group)
+
+    def all_reduce(self, buf: torch.Tensor) -> torch.Tensor:
+        """``buf`` summed over every rank of the mesh, in place."""
+        if self.mesh.size > 1:
+            self._timed("all_reduce", buf, lambda: dist.all_reduce(
+                buf, group=self.mesh.group))
+        return buf
 
 
 def _rank_device(device) -> torch.device:
@@ -278,5 +371,6 @@ def run_mesh(fn: Callable, data: int, model: int, *, backend: str,
                       device=device, timeout=timeout).join()
 
 
-__all__ = ["Mesh", "MeshRanks", "make_host_mesh", "run_mesh", "start_mesh",
-           "to_host"]
+__all__ = ["BF16_TENSOR_OPS_S", "Collectives", "HBM_BYTES_S", "Mesh",
+           "MeshRanks", "NVLINK_BYTES_S", "SCALAR_OPS_S", "make_host_mesh",
+           "make_production_mesh", "run_mesh", "start_mesh", "to_host"]

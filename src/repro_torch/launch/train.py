@@ -1,5 +1,5 @@
-"""Training launcher: the train step and the fault-tolerant loop.  The port
-of :mod:`repro.launch.train`, on one device.
+"""Training launcher: the train step, its sharded form, and the
+fault-tolerant loop.  The port of :mod:`repro.launch.train`.
 
 ``make_train_step`` builds the (model, opt_state, batch) -> (model,
 opt_state, metrics) step: ``api.loss`` and its backward (the attention and
@@ -16,8 +16,24 @@ v))`` with every layer leaf stacked [L, ...], so a checkpoint of either
 package restores in the other.  The model and the moments are updated
 in place, where the reference's jitted step donates them.
 
-Sharding the step over a mesh (the reference's ``shard_train_fns``) waits
-for ROADMAP item 14e: a mesh of more than one rank raises.
+``shard_train_fns`` is the step on a mesh of ``torch.distributed`` ranks
+(:mod:`repro_torch.launch.mesh`), each rank calling it with its view of
+the mesh.  It computes the function ``make_train_step`` computes, under
+the reference's specs (:mod:`repro_torch.parallel.sharding`): a rank
+holds its block of every parameter and of both AdamW moments
+(:class:`Sharded`).  A step gathers the blocks over the rank's ``model``
+row into the rank's whole model, runs ``api.loss`` and its backward on the
+rank's rows of the batch (the batch over the data axes as
+``batch_pspecs`` puts it, a row's share split among its ``model`` ranks),
+sums the gradients and the loss over the whole mesh and divides by the
+number of ranks, so the gradient norm and the clipping see the whole
+gradient, and updates only the rank's blocks.  Where the batch does not
+divide, or in an MoE config (an expert's capacity counts the whole
+batch's tokens), every rank computes the whole batch: the sum over the
+ranks divided by their number is then that batch's gradient.  ``run``
+on a mesh is called on every rank: rank 0 saves the gathered reference
+tree, the checkpoint a single-device run writes, and on resume every rank
+restores it and keeps its blocks.
 
 Usage (CPU, a reduced model; the card is the default device):
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
@@ -28,7 +44,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import time
-from typing import Callable, Optional
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
@@ -36,11 +52,13 @@ import torch
 from repro_torch import configs as cfglib
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.data.tokens import synthetic_batches
+from repro_torch.launch.mesh import Collectives, Mesh
 from repro_torch.models.common import (flat_params, tree_from_host,
                                        tree_map, tree_to_host)
 from repro_torch.models.registry import ModelAPI, build
 from repro_torch.optim import adamw
 from repro_torch.optim.compression import compress_grads
+from repro_torch.parallel import sharding as sh
 
 
 @dataclasses.dataclass
@@ -75,6 +93,210 @@ def make_train_step(api: ModelAPI, opt_cfg: adamw.AdamWConfig,
         return model, opt_state, metrics
 
     return step
+
+
+# --------------------------------------------------------------------------
+# the step on a mesh
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class Sharded:
+    """This rank's blocks of a list of tensors laid out on ``mesh`` like a
+    model's parameters: ``blocks[k]`` is this rank's block of the k-th
+    tensor of ``flat_params(tree)`` (of its values, or of one of its AdamW
+    moments) under ``specs[k]`` (``sharding.flat_pspecs``); a replicated
+    tensor's block is the whole tensor.  None on a rank outside the
+    mesh."""
+
+    tree: Any                  # the model's param_tree: names, full shapes
+    mesh: Mesh
+    specs: list
+    blocks: Optional[list]
+
+
+def _sharded_dim(spec) -> Optional[int]:
+    """The dim a parameter spec shards (over ``model``), or None."""
+    dims = [d for d, e in enumerate(spec) if e is not None]
+    if not dims:
+        return None
+    if len(dims) > 1 or spec[dims[0]] != sh.MODEL:
+        raise ValueError(f"spec {spec}: a parameter shards one dim over "
+                         f"{sh.MODEL!r}")
+    return dims[0]
+
+
+def shard(tree, values: list, mesh: Mesh) -> Sharded:
+    """This rank's blocks of ``values`` (whole tensors in ``flat_params``
+    order): a sharded tensor's block copied out, a replicated one as it
+    is."""
+    specs = sh.flat_pspecs(tree, mesh)
+    blocks = None if mesh.coords is None else [
+        v if _sharded_dim(s) is None else
+        v.detach()[sh.block_slices(v.shape, s, mesh)].clone()
+        for v, s in zip(values, specs)]
+    return Sharded(tree, mesh, specs, blocks)
+
+
+def gather(x: Sharded, comm: Collectives, into: Optional[list] = None
+           ) -> list:
+    """Every tensor whole, from the blocks of the ranks of this rank's
+    ``model`` row: one collective (``comm.gather_model``) of the sharded
+    blocks' raw bytes, a rank a row (each block at a 4-byte boundary).
+    Written into ``into`` (whole tensors) where given; a replicated
+    tensor is its block."""
+    full = list(x.blocks)
+    idx = [k for k, s in enumerate(x.specs) if _sharded_dim(s) is not None]
+    if not idx:
+        return full
+    raw = [x.blocks[k].detach().contiguous().view(-1).view(torch.uint8)
+           for k in idx]
+    pad = [(-r.numel()) % 4 for r in raw]
+    rows = comm.gather_model(torch.cat([t for r, p in zip(raw, pad)
+                                        for t in (r, r.new_zeros(p))]))
+    m = rows.shape[0]
+    at = 0
+    for k, r, p in zip(idx, raw, pad):
+        blk = x.blocks[k]
+        parts = rows[:, at:at + r.numel()].view(blk.dtype).reshape(
+            (m,) + tuple(blk.shape))
+        at += r.numel() + p
+        whole = torch.cat(list(parts), dim=_sharded_dim(x.specs[k]))
+        if into is None:
+            full[k] = whole
+        else:
+            with torch.no_grad():
+                into[k].copy_(whole)
+            full[k] = into[k]
+    return full
+
+
+def rank_rows(cfg, b: int, mesh: Mesh) -> slice:
+    """This rank's rows of a batch of ``b``: the batch over the data axes
+    where ``batch_pspecs`` shards it, each data index's rows split among
+    its ``model`` ranks where they divide; the whole batch where it does
+    not divide or in an MoE config (capacity counts the batch's
+    tokens)."""
+    dp = sh.dp_axes(mesh)
+    d = 1
+    i = 0
+    for a in dp:
+        d *= mesh.shape[a]
+        i = i * mesh.shape[a] + mesh.axis_index(a)
+    if cfg.is_moe or b % d or b < d:
+        return slice(0, b)
+    per = b // d
+    m = mesh.shape[sh.MODEL]
+    if per % m or per < m:
+        return slice(i * per, (i + 1) * per)
+    j = mesh.axis_index(sh.MODEL)
+    return slice(i * per + j * (per // m), i * per + (j + 1) * (per // m))
+
+
+class ShardedStep:
+    """``make_train_step``'s function on this rank of ``mesh``:
+    ``step(params, opt_state, batch) -> (params, opt_state, metrics)``
+    with ``params`` and the state's moments :class:`Sharded` and
+    ``batch`` the whole batch (the step takes its rows).  ``model`` is
+    the rank's whole model: a step gathers the weights into it before the
+    loss.  ``comm`` (a :class:`~repro_torch.launch.mesh.Collectives` by
+    default) carries the gather and the gradient's sum."""
+
+    def __init__(self, api: ModelAPI, mesh: Mesh, model,
+                 opt_cfg: adamw.AdamWConfig, compression: str = "none",
+                 comm=None):
+        self.api, self.mesh, self.model = api, mesh, model
+        self.opt_cfg, self.compression = opt_cfg, compression
+        self.tree = api.param_tree(model)
+        self.params = flat_params(self.tree)
+        self.comm = comm or Collectives(mesh)
+
+    def shard_params(self) -> Sharded:
+        """This rank's blocks of the model's weights (a replicated
+        weight's block is the model's own tensor)."""
+        return shard(self.tree, self.params, self.mesh)
+
+    def shard_opt(self, opt_state: Optional[adamw.AdamWState] = None
+                  ) -> adamw.AdamWState:
+        """The AdamW state with this rank's blocks of the moments: of
+        ``opt_state``'s whole moments, or zero at step 0 when None."""
+        if opt_state is None:
+            specs = sh.flat_pspecs(self.tree, self.mesh)
+            zeros = lambda: Sharded(self.tree, self.mesh, specs, [
+                torch.zeros([b.stop - b.start for b in sh.block_slices(
+                    p.shape, sp, self.mesh)], dtype=torch.float32,
+                    device=p.device) for p, sp in zip(self.params, specs)])
+            return adamw.AdamWState(
+                step=torch.zeros((), dtype=torch.int32,
+                                 device=self.params[0].device),
+                m=zeros(), v=zeros())
+        return opt_state._replace(
+            m=shard(self.tree, opt_state.m, self.mesh),
+            v=shard(self.tree, opt_state.v, self.mesh))
+
+    def gather_params(self, params: Sharded) -> None:
+        """The whole weights into the model."""
+        gather(params, self.comm, into=self.params)
+
+    def checkpoint_tree(self, params: Sharded, opt_state: adamw.AdamWState):
+        """:func:`checkpoint_tree` of the gathered weights and moments
+        (collective over the mesh's ranks; the model ends up current)."""
+        self.gather_params(params)
+        return checkpoint_tree(self.api, self.model, opt_state._replace(
+            m=gather(opt_state.m, self.comm),
+            v=gather(opt_state.v, self.comm)))
+
+    def __call__(self, params: Sharded, opt_state: adamw.AdamWState,
+                 batch: dict):
+        self.gather_params(params)
+        first = next(iter(batch.values()))
+        rows = rank_rows(self.api.cfg, first.shape[0], self.mesh)
+        for p in self.params:
+            p.grad = None
+        loss = self.api.loss(self.model, {k: v[rows]
+                                          for k, v in batch.items()})
+        loss.backward()
+        # every gradient (zero where the loss misses a leaf) and the loss,
+        # summed over the mesh in one f32 buffer
+        buf = torch.zeros(sum(p.numel() for p in self.params) + 1,
+                          dtype=torch.float32, device=loss.device)
+        at = 0
+        for p in self.params:
+            if p.grad is not None:
+                buf[at:at + p.numel()].copy_(p.grad.reshape(-1))
+            p.grad = None
+            at += p.numel()
+        buf[-1] = loss.detach()
+        self.comm.all_reduce(buf)
+        buf /= self.mesh.size
+        grads, at = [], 0
+        for p in self.params:      # the whole gradient, in the param dtype
+            grads.append(buf[at:at + p.numel()].view(p.shape).to(p.dtype))
+            at += p.numel()
+        if self.compression != "none":
+            grads = compress_grads(grads, self.compression)
+        gn = adamw.global_norm(grads)
+        g_blocks = [g if _sharded_dim(s) is None else
+                    g[sh.block_slices(g.shape, s, self.mesh)]
+                    for g, s in zip(grads, params.specs)]
+        _, st, info = adamw.update(
+            self.opt_cfg, g_blocks,
+            opt_state._replace(m=opt_state.m.blocks, v=opt_state.v.blocks),
+            params.blocks, grad_norm=gn)
+        metrics = dict(loss=buf[-1], grad_norm=gn, lr=info["lr"])
+        return params, st._replace(m=opt_state.m, v=opt_state.v), metrics
+
+
+def shard_train_fns(api: ModelAPI, mesh: Mesh, model, opt_state, batch,
+                    opt_cfg, compression="none"):
+    """The step on this rank of ``mesh`` (:class:`ShardedStep`) and the
+    specs it holds the state and reads the batch by: ``(step, (p_spec,
+    o_spec, b_spec))`` as the reference returns them (``opt_state``, as
+    there, is not read: the moments' specs are the parameters')."""
+    p_spec = sh.params_pspecs(api.param_tree(model), mesh)
+    o_spec = adamw.AdamWState(step=sh.P(), m=p_spec, v=p_spec)
+    b_spec = sh.batch_pspecs(batch, mesh)
+    return (ShardedStep(api, mesh, model, opt_cfg, compression),
+            (p_spec, o_spec, b_spec))
 
 
 class StragglerWatchdog:
@@ -143,41 +365,63 @@ def _on_device(batch: dict, device) -> dict:
     return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
 
 
-def run(api: ModelAPI, train_cfg: TrainConfig, mesh=None,
+def run(api: ModelAPI, train_cfg: TrainConfig, mesh: Optional[Mesh] = None,
         batch_size: int = 8, seq: int = 256, seed: int = 0,
         data_iter=None, verbose: bool = True) -> dict:
-    """Fault-tolerant training loop with auto-resume, on ``api.device``."""
-    if mesh is not None and mesh.size > 1:
-        raise NotImplementedError(
-            f"training over a {dict(mesh.shape)} mesh needs the sharded "
-            "train step (ROADMAP item 14e); run on one device")
+    """Fault-tolerant training loop with auto-resume, on ``api.device``;
+    on a ``mesh`` of more than one rank, called on every rank, the step
+    is :func:`shard_train_fns`' (rank 0 logs and saves the checkpoint).
+    Returns the losses, grad norms and host seconds a step, the model
+    (gathered whole on a mesh), the AdamW state (the rank's blocks of the
+    moments on a mesh) and, on a mesh, the rank's blocks of the weights
+    (``shards``) and each step's collective host seconds by kind
+    (``collective_seconds``: the gather, the gradients' all-reduce)."""
     dev = api.device
+    sharded = mesh is not None and mesh.size > 1
     model = api.init(torch.Generator(device=dev).manual_seed(seed))
-    opt_state = adamw.init(flat_params(api.param_tree(model)))
+    params = flat_params(api.param_tree(model))
     data_iter = data_iter or synthetic_batches(api.cfg, batch_size, seq,
                                                seed=seed)
     first = next(data_iter)
-    step_fn = make_train_step(api, train_cfg.opt,
-                              train_cfg.grad_compression)
+    if sharded:
+        step_fn, _ = shard_train_fns(api, mesh, model, None, first,
+                                     train_cfg.opt,
+                                     train_cfg.grad_compression)
+        verbose = verbose and mesh.rank == mesh.rank_of(0, 0)
+    else:
+        step_fn = make_train_step(api, train_cfg.opt,
+                                  train_cfg.grad_compression)
 
     ckpt = CheckpointManager(train_cfg.ckpt_dir, keep=train_cfg.keep)
     start = 0
+    opt_state = None if sharded else adamw.init(params)
     restored = ckpt.restore_latest(checkpoint_template(api, model))
     if restored is not None:
         tree, start = restored
-        opt_state = load_checkpoint(api, model, opt_state, tree)
+        opt_state = load_checkpoint(api, model, opt_state or
+                                    adamw.init(params), tree)
         if verbose:
             print(f"[train] resumed from step {start}")
+    state = model
+    if sharded:     # every rank keeps its blocks
+        state, opt_state = step_fn.shard_params(), step_fn.shard_opt(
+            opt_state)
 
     dog = StragglerWatchdog(train_cfg.straggler_factor)
-    losses, seconds = [], []
+    losses, norms, seconds, coll = [], [], [], []
     t_step = time.perf_counter()
     batch = _on_device(first, dev)
     for i in range(start, train_cfg.steps):
-        model, opt_state, metrics = step_fn(model, opt_state, batch)
+        if sharded:
+            c0 = dict(step_fn.comm.seconds)
+        state, opt_state, metrics = step_fn(state, opt_state, batch)
+        if sharded:
+            coll.append({k: v - c0[k]
+                         for k, v in step_fn.comm.seconds.items()})
         batch = _on_device(next(data_iter), dev)
         loss = float(metrics["loss"])
         losses.append(loss)
+        norms.append(metrics["grad_norm"])
         dt = time.perf_counter() - t_step
         t_step = time.perf_counter()
         seconds.append(dt)
@@ -186,13 +430,25 @@ def run(api: ModelAPI, train_cfg: TrainConfig, mesh=None,
         if verbose and (i % train_cfg.log_every == 0
                         or i == train_cfg.steps - 1):
             print(f"[train] step {i:5d} loss {loss:.4f} "
-                  f"gnorm {float(metrics['grad_norm']):.3f} "
+                  f"gnorm {float(norms[-1]):.3f} "
                   f"lr {float(metrics['lr']):.2e} {dt * 1e3:.0f} ms")
         if train_cfg.ckpt_every and ((i + 1) % train_cfg.ckpt_every == 0
                                      or i == train_cfg.steps - 1):
-            ckpt.save(checkpoint_tree(api, model, opt_state), step=i + 1)
-    return dict(losses=losses, params=model, opt_state=opt_state,
-                straggler_flags=dog.flagged, step_seconds=seconds)
+            if not sharded:
+                ckpt.save(checkpoint_tree(api, model, opt_state), step=i + 1)
+                continue
+            tree = step_fn.checkpoint_tree(state, opt_state)
+            if mesh.rank == mesh.rank_of(0, 0):
+                ckpt.save(tree, step=i + 1)
+            del tree
+            step_fn.comm.barrier()     # the checkpoint is on disk
+    out = dict(losses=losses, grad_norms=[float(g) for g in norms],
+               params=model, opt_state=opt_state,
+               straggler_flags=dog.flagged, step_seconds=seconds)
+    if sharded:
+        step_fn.gather_params(state)
+        out.update(shards=state, collective_seconds=coll)
+    return out
 
 
 def main(argv=None):

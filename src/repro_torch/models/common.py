@@ -150,7 +150,11 @@ def apply_rope(x: torch.Tensor, pos: torch.Tensor, theta: float):
 
 
 def _normal(gen: torch.Generator, shape, device) -> torch.Tensor:
-    """Standard normal f32 drawn on the generator's device, then moved."""
+    """Standard normal f32 drawn on the generator's device, then moved.
+    On ``meta`` (a model's shapes, nothing allocated) nothing is drawn and
+    ``gen`` may be None."""
+    if torch.device(device or "cpu").type == "meta":
+        return torch.empty(shape, dtype=torch.float32, device="meta")
     t = torch.randn(shape, generator=gen, dtype=torch.float32,
                     device=gen.device)
     return t.to(device)

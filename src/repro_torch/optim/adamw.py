@@ -67,14 +67,17 @@ def global_norm(tree) -> torch.Tensor:
 
 
 @torch.no_grad()
-def update(cfg: AdamWConfig, grads, state: AdamWState, params):
+def update(cfg: AdamWConfig, grads, state: AdamWState, params,
+           grad_norm=None):
     """One AdamW step: ``params`` and the state's moments are updated in
     place; returns ``(params, new state, info)`` as the reference does.
     A None gradient is zero (the reference's gradient of an unused
-    leaf)."""
+    leaf).  ``grad_norm``, the whole gradient's norm, is given where
+    ``grads``, ``params`` and the moments are one rank's blocks of them
+    (the sharded train step); else it is ``global_norm(grads)``."""
     step = state.step + 1
     lr = schedule(cfg, step)
-    gn = global_norm(grads)
+    gn = global_norm(grads) if grad_norm is None else grad_norm
     scale = torch.clamp(cfg.clip_norm / (gn + 1e-9), max=1.0)
     stepf = step.float()
     bc1 = 1 - cfg.b1 ** stepf

@@ -85,13 +85,6 @@ def test_straggler_watchdog():
     assert dog.flagged == 1
 
 
-def test_run_refuses_a_mesh_of_more_than_one_rank():
-    api = TREG.build(TC.get_reduced("smollm_135m"), device="cpu")
-    mesh = type("M", (), {"size": 8, "shape": {"data": 2, "model": 4}})()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14e"):
-        TTR.run(api, TTR.TrainConfig(steps=1), mesh=mesh)
-
-
 @pytest.mark.parametrize("name", JC.ALL_ARCHS)
 def test_one_train_step_reduces_loss_direction(name):
     """One AdamW step on a fixed batch does not blow up the loss (the

@@ -104,18 +104,24 @@ differ from the counts above.
    backward kernels) == the CPU (the plain versions' autograd): loss,
    grad norm and every parameter and moment after the update within 1e-4;
 14. train-smollm-135m — ``launch/train.py::run`` at full width in bf16,
-   4 steps (1 warm, 3 timed) at 4 × 4096 tokens: a line a step, tokens/s,
-   peak memory, K2's forward and backward launches a step (30 and 30,
+   4 steps (1 warm, 3 timed) at 4 × 4096 tokens, each layer
+   rematerialised (as every family's training forward is, the
+   reference's ``jax.checkpoint``): a line a step, tokens/s, peak memory,
+   K2's forward and backward launches a step (60, twice the 30 backward,
    every one on the ``wgmma`` route);
    a checkpoint (bf16 weights, f32 moments) restored bit for bit; a
    profiled fifth step (the top kernels, the device's idle share); ``run``
    resumed from the checkpoint, whose step gives the fifth step's loss;
-15. train-rwkv6-1.6b — the same at 4 × 2048 tokens, K3's launches (24 and
-   24 a step);
-16. train-recurrentgemma-2b — the same at 1 × 4096 tokens with each
-   super-block rematerialised, K2's launches (16 forward, twice the 8
+15. train-rwkv6-1.6b — the same at 4 × 4096 tokens, K3's launches (48,
+   twice the 24 backward, a step);
+16. train-recurrentgemma-2b — the same at 1 × 4096 tokens (each
+   super-block rematerialised), K2's launches (16 forward, twice the 8
    backward, a step, all on ``wgmma``), without the checkpoint's save,
-   restore and resume (the cells above show them bit for bit);
+   restore and resume (the cells above show them bit for bit); then
+   train-whisper-medium (4 × 4096 decoder tokens over 4 × 1,500 frames;
+   K2 144 forward, twice the 72 backward: encoder, causal decoder and
+   cross-attention) and train-internvl2-1b (4 × 4096 tokens behind the
+   256-patch prefix; K2 48 and 24), without the checkpoint either;
 17. train-smollm-135m-sharded — ``launch/train.py``'s sharded step over a
    (data 2, model 2) mesh of four gloo ranks on the card
    (``start_mesh``): a reduced f32 smollm's sharded step on the card ==
@@ -129,7 +135,7 @@ differ from the counts above.
    grad norm within ``SHARDED_TRAIN_RTOL`` of train-smollm-135m's (and
    the bf16 embedding gradient's own spread on the batch's tokens), its
    seconds, tokens/s and seconds in the gather and in the gradient
-   all-reduce, the reshard's seconds, K2's launches (30 forward and 30
+   all-reduce, the reshard's seconds, K2's launches (60 forward and 30
    backward a step on every rank, all on ``wgmma``) and each rank's peak
    memory.
 
@@ -139,9 +145,10 @@ bit for bit; K2's backward on both of its routes: ``wgmma`` for bf16 at
 hd 64, 128 and 256, from the forward's log-sum-exp, which is held against
 its plain version too, and ``fma`` for f32 and bf16 at hd 16 and 32) and
 times them at smollm's and recurrentgemma's attention shapes (the latter
-at batch 4 and at its training cell's batch 1) and rwkv6's training
-shape, beside their bounds, the plain versions and SDPA's backward
-(raising if recurrentgemma's windowed backward is slower than SDPA's with
+at batch 4 and at its training cell's batch 1), whisper-medium's three
+training shapes (encoder, cross-attention, causal decoder), internvl2-1b's
+and rwkv6's training shapes, beside their bounds, the plain versions and
+SDPA's backward (raising if recurrentgemma's windowed backward is slower than SDPA's with
 the mask).
 
 The line before the last is a JSON object with the kernels' numbers; the
@@ -1499,8 +1506,10 @@ SHARDED_PARITY_CFG = dict(n_ms=4, nodes_per_ms=256, fanout=8,
                           n_locks_per_ms=512, max_height=6, n_cs=2)
 #: lanes of a routed lookup and of a write-intensive wave
 SHARDED_BATCH = 1_024
-#: write-intensive waves of deploy-1B-sharded through the pjit path
-SHARDED_WAVES = 4
+#: write-intensive waves of deploy-1B-sharded through the pjit path: one
+#: (each moves three 4.4 GB blocks through gloo twice, ~20 s; four took
+#: ~80 s of the script's 1,200 s, which the training cells now need)
+SHARDED_WAVES = 1
 SHARDED_TIMEOUT = 900.0
 
 
@@ -2104,8 +2113,19 @@ def phase_wkv(torch, wkv6, wkv6_ref, wkv6_seq):
 # no key (at hd 256 also Sq 200 > Sk 120 + window 64); then the timed
 # shapes, smollm-135m's training shape and recurrentgemma-2b's local
 # attention at batch 4 and at its training cell's batch 1, which the plain
-# version's [S, S] f32 gradient still fits at full size.
+# version's [S, S] f32 gradient still fits at full size; and the shapes
+# the train-whisper-medium and train-internvl2-1b steps give it, at full
+# size (``FLASH_BWD_TRAIN``, checked and timed: whisper's encoder
+# self-attention over 1,500 frames and its cross-attention from 4,096
+# tokens into them, both full, 1,500 no multiple of a key tile; its
+# decoder's causal self-attention; internvl2's causal GQA (group 7) over
+# the 256-patch prefix and 4,096 tokens).
 _BF16_BWD = ("bfloat16", 4e-2, 2e-2)
+FLASH_BWD_TRAIN = {
+    "whisper_enc": (4, 16, 16, 1500, 1500, 64, False, 0) + _BF16_BWD,
+    "whisper_cross": (4, 16, 16, 4096, 1500, 64, False, 0) + _BF16_BWD,
+    "whisper_dec": (4, 16, 16, 4096, 4096, 64, True, 0) + _BF16_BWD,
+    "internvl": (4, 14, 2, 4352, 4352, 64, True, 0) + _BF16_BWD}
 FLASH_BWD_CASES = [(2, 4, 2, 64, 64, 64, True, 0) + _F32,
                    (1, 2, 1, 100, 37, 16, False, 0) + _F32,
                    (1, 4, 1, 300, 100, 128, True, 40) + _F32,
@@ -2131,27 +2151,36 @@ FLASH_BWD_CASES = [(2, 4, 2, 64, 64, 64, True, 0) + _F32,
                    (1, 3, 1, 333, 190, 256, False, 0) + _BF16_BWD,
                    (2, 10, 1, 300, 300, 256, True, 100) + _BF16_BWD,
                    (1, 6, 2, 130, 130, 256, False, 33) + _BF16_BWD,
-                   (1, 4, 4, 300, 100, 256, True, 40) + _BF16_BWD]
+                   (1, 4, 4, 300, 100, 256, True, 40) + _BF16_BWD] \
+    + list(FLASH_BWD_TRAIN.values())
 # the forward's log-sum-exp (the wgmma route's input) against
 # attention_lse_ref: f32 sums of ex2.approx terms in another order
 LSE_TOL = (1e-4, 1e-5)
-FLASH_BWD_TIMED = [(4, 9, 3, 4096, 4096, 64, True, 0) + _BF16_BWD,
-                   (4, 10, 1, 4096, 4096, 256, True, 2048) + _BF16_BWD,
-                   (1, 10, 1, 4096, 4096, 256, True, 2048) + _BF16_BWD]
+# the timed shapes, by the label their numbers take in the kernels line:
+# smollm-135m's training shape, recurrentgemma-2b's local attention at
+# batch 4 and at its training cell's batch 1
+FLASH_BWD_TIMED = {
+    "main": (4, 9, 3, 4096, 4096, 64, True, 0) + _BF16_BWD,
+    "windowed": (4, 10, 1, 4096, 4096, 256, True, 2048) + _BF16_BWD,
+    "windowed_train": (1, 10, 1, 4096, 4096, 256, True, 2048) + _BF16_BWD}
+_TIMED_LABEL = {case: label for label, case
+                in {**FLASH_BWD_TRAIN, **FLASH_BWD_TIMED}.items()}
 # K3's backward (B, H, T, N, small w), f32: its checkpoint chunks of 16
 # steps and their 8-step halves (1, 15, 17, 33 and 67 steps), every head
 # size past two chunks (N 16 at 40 steps, N 32 at 50), decays in [0, 0.05)
-# with exact zeros (small w), and rwkv6-1.6b's training shape (T 2048, the
-# train cell's), each gradient held within 1e-4 · max(1, max|g|)
+# with exact zeros (small w), and rwkv6-1.6b's training shape (T 4096, the
+# train cell's; T 2048 its shape before its layers were rematerialised),
+# each gradient held within 1e-4 · max(1, max|g|)
 # absolute, the gradient leaves' criterion of
 # tests/test_torch_train_grad.py: f32 sums in other orders, and du sums
-# B·T terms (8,192 at T 2048; earlier runs read 5.4e-3 there against
-# partial sums in the hundreds).
+# B·T terms (8,192 at T 2048, 16,384 at T 4096; runs read 5.4e-3–6.6e-3
+# and 8.5e-3–8.8e-3 there against max |du| of 3,494–3,923).
 WKV_BWD_CASES = [(2, 3, 1, 16, False), (2, 3, 15, 16, False),
                  (1, 2, 17, 32, False), (2, 2, 40, 64, False),
                  (1, 1, 33, 64, False), (2, 32, 67, 64, False),
                  (2, 3, 40, 16, False), (1, 2, 50, 32, False),
-                 (2, 4, 70, 64, True), (4, 32, 2048, 64, False)]
+                 (2, 4, 70, 64, True), (4, 32, 2048, 64, False),
+                 (4, 32, 4096, 64, False)]
 WKV_BWD_TOL = 1e-4
 
 
@@ -2203,8 +2232,8 @@ def phase_flash_bwd(torch, flash_attention, flash_attention_bwd,
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda").manual_seed(14)
     torch.cuda.reset_peak_memory_stats()
-    max_err, timed_numbers = 0.0, []
-    for case in FLASH_BWD_CASES + FLASH_BWD_TIMED:
+    max_err, timed = 0.0, {}
+    for case in FLASH_BWD_CASES + list(FLASH_BWD_TIMED.values()):
         b, h, kv, sq, sk, hd, causal, window, dt, atol, rtol = case
         dtype = getattr(torch, dt)
         q, do = (torch.randn((b, h, sq, hd), generator=gen, device="cuda")
@@ -2247,7 +2276,8 @@ def phase_flash_bwd(torch, flash_attention, flash_attention_bwd,
             + ", ".join(f"{float(w.float().abs().max()):.4g}" for w in want)
             + f"); a rerun gives the same bits{lse_note}")
         del got, again, want
-        if case not in FLASH_BWD_TIMED:
+        label = _TIMED_LABEL.get(case)
+        if label is None:
             continue
         grads = tuple(torch.empty_like(t) for t in (q, k, v))
         kernel = lambda: flash_attention_bwd(q, k, v, o, do, grads=grads,
@@ -2293,19 +2323,24 @@ def phase_flash_bwd(torch, flash_attention, flash_attention_bwd,
             f"bound {bound_ms:.6f} ms ({pairs} pairs a head, {n_ops} flops, "
             f"{n_bytes} bytes; {bound_by}); {ms / bound_ms:.3f}x the bound, "
             f"{ms / lib_ms:.3f}x SDPA's backward; {_peak(torch)}")
-        timed_numbers.append(dict(
-            shape=dict(B=b, H=h, KV=kv, S=sq, hd=hd, causal=causal,
+        timed[label] = dict(
+            shape=dict(B=b, H=h, KV=kv, S=sq, Sk=sk, hd=hd, causal=causal,
                        window=window, dtype=dt, route=route),
             max_abs_err=max(errs), ms=ms, host_ms=call_ms,
             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=lib_ms))
+            library_ms=lib_ms)
         del q, k, v, o, do, grads, leaves, lib_grads, mask, lse
         torch.cuda.empty_cache()
-    main, windowed, windowed_train = timed_numbers
+    main = timed["main"]
     main["max_abs_err"] = max_err
-    main["windowed"] = windowed
-    # the shape train-recurrentgemma-2b's step gives the kernel
-    main["windowed_train"] = windowed_train
+    main["windowed"] = timed["windowed"]
+    # the shapes the train-recurrentgemma-2b, train-whisper-medium and
+    # train-internvl2-1b steps give the kernel
+    main["windowed_train"] = timed["windowed_train"]
+    main["whisper_train"] = [timed[k] for k in ("whisper_enc",
+                                                "whisper_cross",
+                                                "whisper_dec")]
+    main["internvl_train"] = timed["internvl"]
     return main
 
 
@@ -2568,18 +2603,26 @@ def phase_lm_parity_train(torch, get_reduced, registry, train, adamw,
 
 # the training cells at full width: (tag, config, batch, seq, the backward
 # kernel of the path, its launches a step, whether the cell saves,
-# restores and resumes a checkpoint); seq 4096 is the LM cells' train_4k
-# reduction (launch/shapes.py:29); rwkv6 at 2048; recurrentgemma at batch
-# 1 (at batch 2 its 2.7 B weights, their f32 moments, the [8192, 256000]
-# logits' f32 loss and the unrematerialised tail blocks peak near the
-# card's 80 GB: scripts/train_cell.py), and without the checkpoint, which
-# the other cells show bit for bit (its bf16 weights and f32 moments are
-# ~27 GB: some 3 minutes at the rwkv6 cell's rate)
+# restores and resumes a checkpoint); 4 x 4096 is the LM cells' train_4k
+# reduction (launch/shapes.py:29), which every family's rematerialised
+# layers fit (rwkv6 peaked at 72.53 GB at 4 x 2048 before its layers
+# were); recurrentgemma at batch 1 (at batch 2 its 2.7 B weights, their
+# f32 moments, the [8192, 256000] logits' f32 loss and the
+# unrematerialised tail blocks peak near the card's 80 GB:
+# scripts/train_cell.py); whisper's batch also carries 1,500 frames a row
+# and internvl2's a 256-patch prefix.  The checkpoint's save, restore and
+# resume run in the first two cells, which show them bit for bit; not in
+# the others (recurrentgemma's bf16 weights and f32 moments are ~27 GB:
+# some 3 minutes at the rwkv6 cell's rate)
 TRAIN_CELLS = [("smollm", "smollm-135m", 4, 4096, "flash_attention_bwd", 30,
                 True),
-               ("rwkv6", "rwkv6-1.6b", 4, 2048, "wkv6_bwd", 24, True),
+               ("rwkv6", "rwkv6-1.6b", 4, 4096, "wkv6_bwd", 24, True),
                ("recurrentgemma", "recurrentgemma-2b", 1, 4096,
-                "flash_attention_bwd", 8, False)]
+                "flash_attention_bwd", 8, False),
+               ("whisper", "whisper-medium", 4, 4096, "flash_attention_bwd",
+                72, False),
+               ("internvl", "internvl2-1b", 4, 4096, "flash_attention_bwd",
+                24, False)]
 
 
 def same_bits(torch, a, b) -> bool:
@@ -2652,8 +2695,8 @@ def phase_train(torch, get, registry, train, adamw, data, fa, fa_bwd, wkv,
     (1 warm, 3 timed) with a checkpoint at step 4 (bf16 weights, f32
     moments, in the system temp directory, removed at the end); the
     forward and backward kernels' launches a step (the forward's twice the
-    backward's for Griffin, whose super-blocks are rematerialised);
-    tokens/s and the peak memory; the
+    backward's: every family's layers are rematerialised); tokens/s and
+    the peak memory; the
     restored checkpoint == the live state bit for bit; a fifth step,
     profiled; then ``run`` resumed from the checkpoint, whose step must
     give the fifth step's loss.  A cell whose last field is False saves no
@@ -2663,10 +2706,10 @@ def phase_train(torch, get, registry, train, adamw, data, fa, fa_bwd, wkv,
     from repro_torch.checkpoint import CheckpointManager
     tag, name, b, s, bwd_name, per_step, ckpt = cell
     cfg = get(name)
-    # Griffin rematerialises each super-block (as the reference's
-    # jax.checkpoint): its attention's forward runs again in the backward
-    remat = cfg.family == "hybrid"
-    fwd_per_step = per_step * (2 if remat else 1)
+    # each layer (Griffin: each super-block) is rematerialised, as the
+    # reference's jax.checkpoint: its forward kernel runs again in the
+    # backward
+    fwd_per_step = 2 * per_step
     api = registry.build(cfg)
     opt = adamw.AdamWConfig(**TRAIN_OPT)
     steps = TRAIN_OPT["total_steps"]
@@ -2683,7 +2726,8 @@ def phase_train(torch, get, registry, train, adamw, data, fa, fa_bwd, wkv,
             + (f"checkpoint directory {ckdir}: "
                f"{shutil.disk_usage(ckdir).free / 1e9:.1f} GB free on its "
                "disk" if ckpt else "no checkpoint")
-            + ("; each super-block rematerialised" if remat else ""))
+            + "; each " + ("super-block" if cfg.family == "hybrid" else
+                           "layer") + " rematerialised")
         reset_flash(fa)
         reset_backward(fa_bwd, wkv_bwd)
         wkv.launches = 0
@@ -3015,8 +3059,8 @@ def phase_train_sharded(torch, single: dict, gpu: str) -> dict:
     the CPU, every step's loss and grad norm are train-smollm-135m's
     (``single``: its run's losses and grad norms) within
     ``SHARDED_TRAIN_RTOL``, the checkpoint restored bit for bit, and K2's
-    forward and backward launched 30 times a step on every rank, all on
-    ``wgmma``.  Returns K2's forward and backward launches over the
+    forward launched 60 times a step and its backward 30 on every rank,
+    all on ``wgmma``.  Returns K2's forward and backward launches over the
     ranks."""
     import tempfile
     from repro_torch.launch.mesh import start_mesh
@@ -3098,15 +3142,18 @@ def phase_train_sharded(torch, single: dict, gpu: str) -> dict:
     fwd, bwd = [], []
     for r in res:
         n = steps + (r["new_coords"] is not None)
+        # the forward twice a layer: once more in the backward (remat)
         expect = {"n": 30 * n, "wgmma": 30 * n, "fma": 0}
-        if r["fwd"] != expect or r["bwd"] != expect:
+        expect_fwd = {k: 2 * v for k, v in expect.items()}
+        if r["fwd"] != expect_fwd or r["bwd"] != expect:
             raise AssertionError(f"sharded-train rank {r['rank']}: K2 "
                                  f"launches {r['fwd']}, backward "
-                                 f"{r['bwd']}, expected {expect} each")
+                                 f"{r['bwd']}, expected {expect_fwd} and "
+                                 f"{expect}")
         fwd.append(r["fwd"]["n"])
         bwd.append(r["bwd"]["n"])
     log(f"sharded-train K2 launches per rank: forward {fwd}, backward "
-        f"{bwd} (30 a step each, every one on wgmma); max_memory_allocated "
+        f"{bwd} (60 and 30 a step, every one on wgmma); max_memory_allocated "
         f"per rank {[r['peak'] for r in res]}; card peak used {card.peak} "
         f"(sampled every {card.every_s} s); phase {phase_s:.3f} s ({gpu})")
     return {"flash_attention": sum(fwd), "flash_attention_bwd": sum(bwd)}
@@ -3690,7 +3737,7 @@ def main(argv=None) -> int:
                                  *args))
     launches["flash_attention"] = sum(flash_paths["granite_prefill"].values())
 
-    # 13.-16. the training path: reduced models card == CPU, then the three
+    # 13.-16. the training path: reduced models card == CPU, then the five
     # full-width training cells
     gc.collect()
     torch.cuda.empty_cache()

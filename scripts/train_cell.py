@@ -6,13 +6,13 @@ at a batch size and a step count of the caller's choosing.
     python scripts/train_cell.py smollm --sharded [--exact-bf16-sums]
 
 TAG names a cell of ``chip_smoke.TRAIN_CELLS`` (smollm, rwkv6,
-recurrentgemma); the cell's own batch and sequence length are the
-defaults, and 4 steps.  It prints the card's name and power limit, then
-runs ``chip_smoke.phase_train`` on the cell: ``launch/train.py::run`` for
-N steps (each step's seconds, tokens/s over all but the first, the
-kernels' launches a step, the peak memory), then one profiled step (the
-device's idle share, the top kernels), with the cell's checkpoint
-setting.  ``--sharded`` (smollm at its own batch and 4 steps) then runs
+recurrentgemma, whisper, internvl); the cell's own batch and sequence
+length are the defaults, and 4 steps.  It prints the card's name and
+power limit, then runs ``chip_smoke.phase_train`` on the cell:
+``launch/train.py::run`` for N steps (each step's seconds, tokens/s over
+all but the first, the kernels' launches a step, the peak memory), then
+one profiled step (the device's idle share, the top kernels), with the
+cell's checkpoint setting.  ``--sharded`` (smollm at its own batch and 4 steps) then runs
 ``chip_smoke.phase_train_sharded``: train-smollm-135m-sharded's four gloo
 ranks, held against that run's losses and grad norms.
 ``--exact-bf16-sums`` turns off cuBLAS's bf16 reductions of bf16

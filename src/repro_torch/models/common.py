@@ -19,6 +19,7 @@ from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.checkpoint.manager import tree_flatten
 
@@ -169,6 +170,24 @@ def dense_init(gen: torch.Generator, shape, in_axis: int = -2,
 def embed_init(gen: torch.Generator, shape, dtype=torch.bfloat16,
                device=None) -> torch.Tensor:
     return _normal(gen, shape, device).mul_(0.02).to(dtype)
+
+
+def remat_layers(fn: Callable, layers, x: torch.Tensor,
+                 *args) -> torch.Tensor:
+    """``x`` through ``fn(layer, x, *args)`` for each of ``layers`` in
+    turn.  When gradients are enabled, each call runs under
+    ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` over a
+    layer): it keeps only its tensor inputs for the backward, which runs
+    it again, so the values do not change.  No layer draws random numbers,
+    so the RNG state is not saved and restored around each call."""
+    remat = torch.is_grad_enabled()
+    for lp in layers:
+        if remat:
+            x = checkpoint(fn, lp, x, *args, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = fn(lp, x, *args)
+    return x
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

@@ -15,6 +15,16 @@ places where PyTorch's defaults differ from JAX's:
   a token's k contributions in choice order, where the reference
   scatter-adds: ``index_add_`` on CUDA adds with atomics, in no fixed
   order, so its bf16 sums would change from run to run.
+
+A training step rematerialises each layer (:mod:`repro_torch.models.
+transformer`), so the routing runs twice on the same input, and the
+backward's second pass must route every pair as the forward did.  It
+does: the router's product and softmax are the same ops on the same
+values, the top k come from the stable sort, the queue positions from a
+cumsum over the pairs in token-major order, the dispatch writes each kept
+pair to its own (expert, slot) (only the dropped pairs share a column,
+which is cut off), and the combine gathers; nothing accumulates in an
+order that can change between the two passes.
 """
 from __future__ import annotations
 

@@ -29,12 +29,11 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as A
 from repro_torch.models.common import (ArchConfig, Layers, cross_entropy,
                                        dense_init, embed_init, param,
-                                       rms_norm, stack_fields,
+                                       remat_layers, rms_norm, stack_fields,
                                        tensor_from_numpy, tree_to_host)
 
 LRU_C = 8.0   # Griffin's fixed exponent scale
@@ -331,12 +330,7 @@ def _forward(params: GriffinParams, tokens: torch.Tensor,
     gradients are enabled, with each super-block rematerialised (the same
     ops run again in the backward, so the values do not change)."""
     x = params.embed[tokens].to(cfg.dtype)
-    remat = torch.is_grad_enabled()
-    for sb in params.supers:
-        if remat:
-            x = checkpoint(_super_block, sb, x, cfg, use_reentrant=False)
-        else:
-            x = _super_block(sb, x, cfg)
+    x = remat_layers(_super_block, params.supers, x, cfg)
     for tl in list(params.tail)[:n_tail(cfg)]:
         x = _rec_block_train(tl, x, cfg)
     return _logits(params, x, cfg)

@@ -12,8 +12,11 @@ CUDA tensor, its plain version on a CPU tensor, once per layer.
 ``decode_step`` steps one token in plain PyTorch, as the reference does.
 ``forward`` and ``decode_step`` run under ``torch.inference_mode()``;
 ``lm_loss`` runs the same layers with gradients enabled (the kernel's
-backward once per layer); its weights in the reference's tree are
-:func:`param_tree`.
+backward once per layer) and, as the reference's ``jax.checkpoint`` over
+each layer, rematerialises them: a layer keeps only its input for the
+backward, which runs its forward again (the kernel's forward twice a layer
+a step; its backward recomputes the states from the saved inputs); its
+weights in the reference's tree are :func:`param_tree`.
 """
 from __future__ import annotations
 
@@ -27,8 +30,8 @@ from torch import nn
 from repro_torch.kernels.rwkv_scan.ops import wkv6_seq
 from repro_torch.models.common import (ArchConfig, Layers, cross_entropy,
                                        dense_init, embed_init, layer_norm,
-                                       param, tensor_from_numpy,
-                                       tree_to_host)
+                                       param, remat_layers,
+                                       tensor_from_numpy, tree_to_host)
 
 TM_LORA = 32      # token-mix lora rank
 DW_LORA = 64      # decay lora rank
@@ -267,11 +270,11 @@ def _layer_seq(lp: RWKVLayer, x: torch.Tensor, cfg: ArchConfig):
 def _forward(params: RWKV6LM, tokens: torch.Tensor,
              cfg: ArchConfig) -> torch.Tensor:
     """Full-sequence logits [B,S,V], recording the graph when gradients
-    are enabled."""
+    are enabled, with each layer rematerialised (the same ops run again in
+    the backward, so the values do not change)."""
     x = params.embed[tokens].to(cfg.dtype)
     x = layer_norm(x, params.ln0_s, params.ln0_b)
-    for lp in params.layers:
-        x = _layer_seq(lp, x, cfg)
+    x = remat_layers(_layer_seq, params.layers, x, cfg)
     y = layer_norm(x, params.lnf_s, params.lnf_b)
     return torch.einsum("bsd,dv->bsv", y, params.head.to(cfg.dtype))
 

@@ -10,7 +10,12 @@ leading ``L`` axis; a layer holds a dense MLP or, in an MoE config, an
 patch prefix), ``prefill`` and ``decode_step`` are the serving paths and
 run under ``torch.inference_mode()``; forward and prefill run the
 flash-attention kernel once per layer.  ``lm_loss`` runs the same layers
-with gradients enabled (the kernel's backward once per layer); its
+with gradients enabled (the kernel's backward once per layer) and, as the
+reference's ``jax.checkpoint`` over each layer (``forward(...,
+remat=True)``, the default ``lm_loss`` takes), rematerialises them: a
+layer keeps only its input for the backward, which runs its forward again
+(the kernel's forward twice a layer a step; an MoE layer's routing comes
+out the same on the second pass, :mod:`repro_torch.models.moe`); its
 weights in the reference's tree are :func:`param_tree`.
 """
 from __future__ import annotations
@@ -26,7 +31,7 @@ from repro_torch.models import attention as A
 from repro_torch.models import moe as M
 from repro_torch.models.common import (ArchConfig, Layers, apply_rope,
                                        cross_entropy, dense_init, embed_init,
-                                       param, rms_norm,
+                                       param, remat_layers, rms_norm,
                                        stack_fields, tensor_from_numpy,
                                        tree_to_host)
 
@@ -178,10 +183,11 @@ def _logits(params: TransformerLM, x, cfg: ArchConfig):
 
 
 def _forward(params: TransformerLM, tokens: torch.Tensor,
-                 cfg: ArchConfig, *,
-                 prefix_embed: Optional[torch.Tensor] = None) -> torch.Tensor:
+             cfg: ArchConfig, *,
+             prefix_embed: Optional[torch.Tensor] = None) -> torch.Tensor:
     """tokens [B, S] -> logits [B, S(+P), V], recording the graph when
-    gradients are enabled.
+    gradients are enabled, with each layer rematerialised (the same ops
+    run again in the backward, so the values do not change).
 
     ``prefix_embed`` [B, P, D] prepends precomputed embeddings (the VLM
     patch stub)."""
@@ -190,8 +196,7 @@ def _forward(params: TransformerLM, tokens: torch.Tensor,
         x = torch.cat([prefix_embed.to(cfg.dtype), x], dim=1)
     b, s, _ = x.shape
     pos = torch.arange(s, device=x.device).expand(b, s)
-    for lp in params.layers:
-        x = _layer_fwd(lp, x, cfg, pos)
+    x = remat_layers(_layer_fwd, params.layers, x, cfg, pos)
     return _logits(params, x, cfg)
 
 

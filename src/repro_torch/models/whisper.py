@@ -14,7 +14,12 @@ approximation, so the port's GELU is ``approximate="tanh"``.  ``encode``,
 ``decode_train``, ``forward``, ``init_decode`` and ``decode_step`` run
 under ``torch.inference_mode()``; ``loss`` runs the same layers with
 gradients enabled (the attention kernel's backward three times a decoder
-layer's pair); its weights in the reference's tree are :func:`param_tree`.
+layer's pair) and, as the reference's ``jax.checkpoint`` over each
+encoder and each decoder layer, rematerialises them: an encoder layer
+keeps only its input for the backward, a decoder layer its input and the
+encoder's output (one tensor for every layer), and the backward runs each
+layer's forward again (the attention kernel's forward twice a call a
+step); its weights in the reference's tree are :func:`param_tree`.
 """
 from __future__ import annotations
 
@@ -28,7 +33,7 @@ from torch import nn
 from repro_torch.models import attention as A
 from repro_torch.models.common import (ArchConfig, Layers, cross_entropy,
                                        dense_init, embed_init, layer_norm,
-                                       param, stack_fields,
+                                       param, remat_layers, stack_fields,
                                        tensor_from_numpy, tree_to_host)
 
 
@@ -200,14 +205,16 @@ def params_to_numpy(params: WhisperParams, cfg: ArchConfig) -> WhisperTree:
     return tree_to_host(param_tree(params, cfg))
 
 
+def _enc_layer(lp: EncLayer, x, cfg: ArchConfig):
+    h = layer_norm(x, lp.ln1_s, lp.ln1_b)
+    x = x + A.attention_train(lp.attn, h, cfg, causal=False, use_rope=False)
+    h = layer_norm(x, lp.ln2_s, lp.ln2_b)
+    return x + _ffn(lp.ffn, h)
+
+
 def _encode(params: WhisperParams, frames: torch.Tensor, cfg: ArchConfig):
     x = frames.to(cfg.dtype) + params.enc_pos[None]
-    for lp in params.enc_layers:
-        h = layer_norm(x, lp.ln1_s, lp.ln1_b)
-        x = x + A.attention_train(lp.attn, h, cfg, causal=False,
-                                  use_rope=False)
-        h = layer_norm(x, lp.ln2_s, lp.ln2_b)
-        x = x + _ffn(lp.ffn, h)
+    x = remat_layers(_enc_layer, params.enc_layers, x, cfg)
     return layer_norm(x, params.enc_lnf_s, params.enc_lnf_b)
 
 
@@ -217,18 +224,24 @@ def encode(params: WhisperParams, frames: torch.Tensor, cfg: ArchConfig):
     return _encode(params, frames, cfg)
 
 
+def _dec_layer(lp: DecLayer, x, enc_out, cfg: ArchConfig):
+    """One decoder layer; ``enc_out`` is an input, so under the
+    rematerialisation the cross-attention's K/V are recomputed from it and
+    its gradient reaches the encoder."""
+    h = layer_norm(x, lp.ln1_s, lp.ln1_b)
+    x = x + A.attention_train(lp.self_attn, h, cfg, causal=True,
+                              use_rope=False)
+    h = layer_norm(x, lp.ln2_s, lp.ln2_b)
+    x = x + A.cross_attention(lp.cross_attn, h, enc_out, cfg)
+    h = layer_norm(x, lp.ln3_s, lp.ln3_b)
+    return x + _ffn(lp.ffn, h)
+
+
 def _decode_train(params: WhisperParams, tokens: torch.Tensor,
                   enc_out: torch.Tensor, cfg: ArchConfig):
     s = tokens.shape[1]
     x = params.tok_embed[tokens].to(cfg.dtype) + params.dec_pos[None, :s]
-    for lp in params.dec_layers:
-        h = layer_norm(x, lp.ln1_s, lp.ln1_b)
-        x = x + A.attention_train(lp.self_attn, h, cfg, causal=True,
-                                  use_rope=False)
-        h = layer_norm(x, lp.ln2_s, lp.ln2_b)
-        x = x + A.cross_attention(lp.cross_attn, h, enc_out, cfg)
-        h = layer_norm(x, lp.ln3_s, lp.ln3_b)
-        x = x + _ffn(lp.ffn, h)
+    x = remat_layers(_dec_layer, params.dec_layers, x, enc_out, cfg)
     x = layer_norm(x, params.dec_lnf_s, params.dec_lnf_b)
     return torch.einsum("bsd,vd->bsv", x, params.tok_embed.to(cfg.dtype))
 

@@ -12,10 +12,12 @@ reference's layout) and ``report.py``'s markdown on a fixed directory of
 cell JSONs.  ``lower_cell`` skips ``long_500k`` on a full-attention arch
 with the reference's reason, and counts smollm-135m's ``train_4k`` on the
 single production mesh: one rank's FLOPs are the analytic count of its
-program exactly, 6·N·S for the matmul weights plus 16·S²·hd·H·L for the
-plain attention (forward 2 products; backward 6: the plain version's
-autograd recomputes the forward's 2), so ``useful_ratio`` is
-6·N·tokens / (256 × that) = 0.4162 (within 1%), and its collective bytes
+program exactly, 6·N·S for the matmul weights, 2·N'·S more for those a
+layer's rematerialisation runs again (N': every layer weight but w_down),
+and 22·S²·hd·H·L for the plain attention (the forward's 2 products and
+its lse's Q·Kᵀ, twice under the remat; the backward's 5), so
+``useful_ratio`` is 6·N·tokens / (256 × that) = 0.3199 (within 1%;
+0.4162 before the layers were rematerialised), and its collective bytes
 are the weights' gather and the gradient's all-reduce, counted from the
 shapes.  Exact equality elsewhere: the functions are arithmetic on equal
 inputs.
@@ -220,13 +222,23 @@ def test_smollm_train_4k_single_cell_counts_its_program():
     s, hd, h, layers = 4096, cfg.hd, cfg.n_heads, cfg.n_layers
     n_total = d["params_total"]
     n_norm = cfg.d_model * (2 * layers + 1)
-    # one rank: 1 of the 256 rows, every weight gathered whole
-    flops = 6 * (n_total - n_norm) * s + 16 * s * s * hd * h * layers
+    # the products each layer's recompute runs again (its checkpoint, the
+    # reference's jax.checkpoint): wq, wk, wv, wo, w_gate and w_up; the
+    # recompute stops once the last tensor the backward keeps (w_down's
+    # input) is back, so w_down's product is not rerun
+    d_m, kv, ff = cfg.d_model, cfg.n_kv_heads, cfg.d_ff
+    n_rerun = layers * (2 * d_m * h * hd + 2 * d_m * kv * hd + 2 * d_m * ff)
+    # one rank: 1 of the 256 rows, every weight gathered whole; the
+    # attention a layer: the forward's Q·Kᵀ and P·V and its lse's Q·Kᵀ
+    # (6·S²·hd a head), twice under the remat, and the plain backward's
+    # five products (10·S²·hd)
+    flops = (6 * (n_total - n_norm) * s + 2 * n_rerun * s
+             + 22 * s * s * hd * h * layers)
     assert d["flops"] == pytest.approx(flops, rel=1e-9)
     assert d["tokens"] == 256 * s
     assert d["model_flops"] == 6 * n_total * 256 * s
     want = 6 * n_total * 256 * s / (256 * flops)
-    assert abs(want - 0.4162) < 1e-4
+    assert abs(want - 0.3199) < 1e-4
     assert d["useful_ratio"] == pytest.approx(want, rel=0.01)
     # the gather: every sharded weight's 16 blocks (bf16, each padded to
     # 4 bytes); the all-reduce: every gradient and the loss in f32

@@ -33,11 +33,12 @@ from repro_torch.launch import train as TTR
 from repro_torch.models import registry as TREG
 from repro_torch.models import rwkv6 as TR
 from repro_torch.models import transformer as TT
+from repro_torch.models import whisper as TW
 from repro_torch.models.common import flat_params
 from repro_torch.optim import adamw as TA
 
 TOL = 1e-4
-FROM_NUMPY = {"dense": TT, "ssm": TR}
+FROM_NUMPY = {"dense": TT, "vlm": TT, "ssm": TR, "audio": TW}
 
 
 def test_train_loop_and_resume(tmp_path):
@@ -115,9 +116,13 @@ def reference_steps(jcfg, opt, n):
     return metrics, params, state
 
 
-@pytest.mark.parametrize("name", ["smollm_135m", "rwkv6_1_6b"])
+@pytest.mark.parametrize("name", ["smollm_135m", "rwkv6_1_6b",
+                                  "internvl2_1b", "whisper_medium"])
 def test_four_step_loss_curve_matches_the_reference(name):
-    """(No gradient compression: int8's rounding steps turn an f32
+    """The batches are ``synthetic_batches``' numpy arrays on both sides,
+    whisper's frames and internvl2's patches f32 as the model casts them
+    (``launch/train.py::run`` moves them to the device unchanged).
+    (No gradient compression: int8's rounding steps turn an f32
     difference in the last bit into a whole quantisation step, so a curve
     through it cannot be held at 1e-4; the round trip itself is held bit
     for bit on equal inputs in tests/test_torch_optim.py.)"""

@@ -15,7 +15,6 @@ are jitted: one compiled program where op-by-op dispatch compiled each op
 (reduced recurrentgemma's ``value_and_grad`` 24 s eager, 4 s jitted, on
 the CPU), the same function in f32.
 """
-import collections
 import dataclasses
 
 import jax
@@ -148,49 +147,6 @@ def test_loss_and_every_gradient_leaf_match_the_reference(case,
         # the gradients came through the rematerialisation: each
         # super-block ran in the forward and again in the backward
         assert len(calls) == 2 * TG.n_super(tcfg) > 0
-
-
-def saved_tensors(api, model, tokens):
-    """The tensors autograd keeps for the backward of ``api.loss``
-    (outside a rematerialised region, whose own hooks take its saves)."""
-    saved = []
-
-    def pack(t):
-        saved.append(tuple(t.shape))
-        return t
-    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
-        loss = api.loss(model, {"tokens": tokens})
-    loss.backward()
-    return saved
-
-
-def test_griffin_training_forward_keeps_no_super_block_internals(
-        monkeypatch):
-    """Griffin's training forward rematerialises each super-block, as the
-    reference's ``jax.checkpoint`` does: a model of two super-blocks keeps
-    the tensors that one of one super-block keeps (the embedding's, the
-    final norm's, the logits' and the loss's, and the super-block's
-    input) and one more, the second super-block's input [B, S, D]; without
-    the rematerialisation each super-block adds its internals."""
-    tokens = torch.from_numpy(np.random.default_rng(3).integers(
-        0, 512, (2, 12)))
-    kept = {}
-    for remat in (True, False):
-        if not remat:
-            monkeypatch.setattr(TG, "checkpoint", lambda fn, *a, **kw: fn(*a))
-        for n_layers in (3, 6):
-            cfg = dataclasses.replace(TC.get_reduced("recurrentgemma_2b"),
-                                      n_layers=n_layers, window=6)
-            assert TG.n_super(cfg) == n_layers // 3 and TG.n_tail(cfg) == 0
-            api = TREG.build(cfg, device="cpu")
-            model = api.init(torch.Generator().manual_seed(0))
-            kept[remat, n_layers] = saved_tensors(api, model, tokens)
-    extra = collections.Counter(kept[True, 6])
-    extra.subtract(collections.Counter(kept[True, 3]))
-    assert +extra == {(2, 12, 64): 1}
-    # a super-block's own saves: its RG-LRU scans, its attention, its MLPs
-    assert len(kept[False, 6]) - len(kept[False, 3]) > 50
-    assert len(kept[False, 3]) > len(kept[True, 3])
 
 
 @pytest.mark.parametrize("name", ["smollm_135m", "rwkv6_1_6b",

@@ -52,6 +52,7 @@ import torch.distributed as dist
 import torch.multiprocessing
 
 from repro_torch.device import resolve_device
+from repro_torch.obs import spans
 
 #: NVIDIA H100 SXM data sheet (dense rates, 700 W): HBM bytes/s, the
 #: float32 rate outside the tensor cores, the bf16 tensor-core rate, and
@@ -161,20 +162,22 @@ class Collectives:
     :meth:`gather_model` (an all-gather over the rank's ``model`` row) and
     :meth:`all_reduce` (a sum over the whole mesh).  Each call's host
     seconds (the card synchronised before and after) add up in
-    ``seconds``."""
+    ``seconds``; each runs in the span ``rt/gather`` or ``rt/all_reduce``
+    (:mod:`repro_torch.obs.spans`)."""
 
     def __init__(self, mesh: Mesh):
         self.mesh = mesh
         self.seconds = {"gather": 0.0, "all_reduce": 0.0}
 
     def _timed(self, kind: str, t: torch.Tensor, fn) -> None:
-        if t.is_cuda:
-            torch.cuda.synchronize(t.device)
-        t0 = time.perf_counter()
-        fn()
-        if t.is_cuda:
-            torch.cuda.synchronize(t.device)
-        self.seconds[kind] += time.perf_counter() - t0
+        with spans.span(spans.PREFIX + kind):
+            if t.is_cuda:
+                torch.cuda.synchronize(t.device)
+            t0 = time.perf_counter()
+            fn()
+            if t.is_cuda:
+                torch.cuda.synchronize(t.device)
+            self.seconds[kind] += time.perf_counter() - t0
 
     def gather_model(self, row: torch.Tensor) -> torch.Tensor:
         """``[m, *row.shape]``: row ``j`` is the ``row`` of the rank at

@@ -56,6 +56,7 @@ from repro_torch.launch.mesh import Collectives, Mesh
 from repro_torch.models.common import (flat_params, tree_from_host,
                                        tree_map, tree_to_host)
 from repro_torch.models.registry import ModelAPI, build
+from repro_torch.obs import spans
 from repro_torch.optim import adamw
 from repro_torch.optim.compression import compress_grads
 from repro_torch.parallel import sharding as sh
@@ -77,20 +78,24 @@ class TrainConfig:
 def make_train_step(api: ModelAPI, opt_cfg: adamw.AdamWConfig,
                     compression: str = "none") -> Callable:
     def step(model, opt_state, batch):
-        params = flat_params(api.param_tree(model))
-        for p in params:
-            p.grad = None
-        loss = api.loss(model, batch)
-        loss.backward()
-        grads = [p.grad for p in params]     # None: a leaf loss misses
-        if compression != "none":
-            grads = compress_grads(grads, compression)
-        _, opt_state, info = adamw.update(opt_cfg, grads, opt_state, params)
-        for p in params:
-            p.grad = None
-        metrics = dict(loss=loss.detach(), grad_norm=info["grad_norm"],
-                       lr=info["lr"])
-        return model, opt_state, metrics
+        with spans.span(spans.STEP):
+            params = flat_params(api.param_tree(model))
+            for p in params:
+                p.grad = None
+            with spans.span(spans.FORWARD):
+                loss = api.loss(model, batch)
+            with spans.span(spans.BACKWARD):
+                loss.backward()
+            grads = [p.grad for p in params]  # None: a leaf loss misses
+            if compression != "none":
+                grads = compress_grads(grads, compression)
+            _, opt_state, info = adamw.update(opt_cfg, grads, opt_state,
+                                              params)
+            for p in params:
+                p.grad = None
+            metrics = dict(loss=loss.detach(), grad_norm=info["grad_norm"],
+                           lr=info["lr"])
+            return model, opt_state, metrics
 
     return step
 
@@ -247,14 +252,21 @@ class ShardedStep:
 
     def __call__(self, params: Sharded, opt_state: adamw.AdamWState,
                  batch: dict):
+        with spans.span(spans.STEP):
+            return self._step(params, opt_state, batch)
+
+    def _step(self, params: Sharded, opt_state: adamw.AdamWState,
+              batch: dict):
         self.gather_params(params)
         first = next(iter(batch.values()))
         rows = rank_rows(self.api.cfg, first.shape[0], self.mesh)
         for p in self.params:
             p.grad = None
-        loss = self.api.loss(self.model, {k: v[rows]
-                                          for k, v in batch.items()})
-        loss.backward()
+        with spans.span(spans.FORWARD):
+            loss = self.api.loss(self.model, {k: v[rows]
+                                              for k, v in batch.items()})
+        with spans.span(spans.BACKWARD):
+            loss.backward()
         # every gradient (zero where the loss misses a leaf) and the loss,
         # summed over the mesh in one f32 buffer
         buf = torch.zeros(sum(p.numel() for p in self.params) + 1,
@@ -419,7 +431,8 @@ def run(api: ModelAPI, train_cfg: TrainConfig, mesh: Optional[Mesh] = None,
             coll.append({k: v - c0[k]
                          for k, v in step_fn.comm.seconds.items()})
         batch = _on_device(next(data_iter), dev)
-        loss = float(metrics["loss"])
+        with spans.span(spans.LOSS_READ):
+            loss = float(metrics["loss"])
         losses.append(loss)
         norms.append(metrics["grad_norm"])
         dt = time.perf_counter() - t_step
@@ -434,14 +447,16 @@ def run(api: ModelAPI, train_cfg: TrainConfig, mesh: Optional[Mesh] = None,
                   f"lr {float(metrics['lr']):.2e} {dt * 1e3:.0f} ms")
         if train_cfg.ckpt_every and ((i + 1) % train_cfg.ckpt_every == 0
                                      or i == train_cfg.steps - 1):
-            if not sharded:
-                ckpt.save(checkpoint_tree(api, model, opt_state), step=i + 1)
-                continue
-            tree = step_fn.checkpoint_tree(state, opt_state)
-            if mesh.rank == mesh.rank_of(0, 0):
-                ckpt.save(tree, step=i + 1)
-            del tree
-            step_fn.comm.barrier()     # the checkpoint is on disk
+            with spans.span(spans.CHECKPOINT):
+                if not sharded:
+                    ckpt.save(checkpoint_tree(api, model, opt_state),
+                              step=i + 1)
+                    continue
+                tree = step_fn.checkpoint_tree(state, opt_state)
+                if mesh.rank == mesh.rank_of(0, 0):
+                    ckpt.save(tree, step=i + 1)
+                del tree
+                step_fn.comm.barrier()     # the checkpoint is on disk
     out = dict(losses=losses, grad_norms=[float(g) for g in norms],
                params=model, opt_state=opt_state,
                straggler_flags=dog.flagged, step_seconds=seconds)

@@ -22,6 +22,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.checkpoint.manager import tree_flatten
+from repro_torch.obs import spans
 
 
 @dataclasses.dataclass(frozen=True)
@@ -179,27 +180,49 @@ def remat_layers(fn: Callable, layers, x: torch.Tensor,
     ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` over a
     layer): it keeps only its tensor inputs for the backward, which runs
     it again, so the values do not change.  No layer draws random numbers,
-    so the RNG state is not saved and restored around each call."""
+    so the RNG state is not saved and restored around each call.  Each
+    call runs in the span ``rt/layer``, and its run again in the backward
+    in ``rt/remat_replay`` (:func:`repro_torch.obs.spans.layer_span`)."""
+    def layer(lp, x, *args):
+        with spans.layer_span():
+            return fn(lp, x, *args)
+
     remat = torch.is_grad_enabled()
     for lp in layers:
         if remat:
-            x = checkpoint(fn, lp, x, *args, use_reentrant=False,
+            x = checkpoint(layer, lp, x, *args, use_reentrant=False,
                            preserve_rng_state=False)
         else:
-            x = fn(lp, x, *args)
+            x = layer(lp, x, *args)
     return x
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Mean next-token CE in fp32. logits [..., V], labels int [...]."""
-    logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    nll = logz - gold
-    if mask is not None:
-        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1)
-    return nll.mean()
+    """Mean next-token CE in fp32. logits [..., V], labels int [...].
+
+    It runs in the span ``rt/loss``; its backward opens
+    ``rt/backward/head_loss``, which the head's input closes
+    (:func:`head_input`)."""
+    with spans.span(spans.LOSS):
+        logits = logits.float()
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+        nll = logz - gold
+        if mask is not None:
+            loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1)
+        else:
+            loss = nll.mean()
+    spans.open_in_backward(loss, spans.HEAD_LOSS_BACKWARD)
+    return loss
+
+
+def head_input(x: torch.Tensor) -> torch.Tensor:
+    """``x``, the input of a model's final norm and head: the span
+    ``rt/backward/head_loss``, opened by :func:`cross_entropy`'s backward,
+    closes once ``x`` has its gradient."""
+    spans.close_in_backward(x, spans.HEAD_LOSS_BACKWARD)
+    return x
 
 
 def param(t: torch.Tensor) -> torch.nn.Parameter:

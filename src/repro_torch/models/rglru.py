@@ -32,9 +32,11 @@ from torch import nn
 
 from repro_torch.models import attention as A
 from repro_torch.models.common import (ArchConfig, Layers, cross_entropy,
-                                       dense_init, embed_init, param,
-                                       remat_layers, rms_norm, stack_fields,
-                                       tensor_from_numpy, tree_to_host)
+                                       dense_init, embed_init, head_input,
+                                       param, remat_layers, rms_norm,
+                                       stack_fields, tensor_from_numpy,
+                                       tree_to_host)
+from repro_torch.obs import spans
 
 LRU_C = 8.0   # Griffin's fixed exponent scale
 
@@ -320,8 +322,10 @@ def _super_block(sb: SuperBlock, x, cfg: ArchConfig):
 
 
 def _logits(params: GriffinParams, x, cfg: ArchConfig):
-    x = rms_norm(x, params.ln_f, cfg.norm_eps)
-    return torch.einsum("...d,dv->...v", x, params.embed.T.to(cfg.dtype))
+    with spans.span(spans.HEAD):
+        x = rms_norm(head_input(x), params.ln_f, cfg.norm_eps)
+        return torch.einsum("...d,dv->...v", x,
+                            params.embed.T.to(cfg.dtype))
 
 
 def _forward(params: GriffinParams, tokens: torch.Tensor,
@@ -329,7 +333,8 @@ def _forward(params: GriffinParams, tokens: torch.Tensor,
     """tokens [B, S] -> logits [B, S, V], recording the graph when
     gradients are enabled, with each super-block rematerialised (the same
     ops run again in the backward, so the values do not change)."""
-    x = params.embed[tokens].to(cfg.dtype)
+    with spans.span(spans.EMBED):
+        x = params.embed[tokens].to(cfg.dtype)
     x = remat_layers(_super_block, params.supers, x, cfg)
     for tl in list(params.tail)[:n_tail(cfg)]:
         x = _rec_block_train(tl, x, cfg)

@@ -29,9 +29,10 @@ from torch import nn
 
 from repro_torch.kernels.rwkv_scan.ops import wkv6_seq
 from repro_torch.models.common import (ArchConfig, Layers, cross_entropy,
-                                       dense_init, embed_init, layer_norm,
-                                       param, remat_layers,
+                                       dense_init, embed_init, head_input,
+                                       layer_norm, param, remat_layers,
                                        tensor_from_numpy, tree_to_host)
+from repro_torch.obs import spans
 
 TM_LORA = 32      # token-mix lora rank
 DW_LORA = 64      # decay lora rank
@@ -272,11 +273,13 @@ def _forward(params: RWKV6LM, tokens: torch.Tensor,
     """Full-sequence logits [B,S,V], recording the graph when gradients
     are enabled, with each layer rematerialised (the same ops run again in
     the backward, so the values do not change)."""
-    x = params.embed[tokens].to(cfg.dtype)
-    x = layer_norm(x, params.ln0_s, params.ln0_b)
+    with spans.span(spans.EMBED):
+        x = params.embed[tokens].to(cfg.dtype)
+        x = layer_norm(x, params.ln0_s, params.ln0_b)
     x = remat_layers(_layer_seq, params.layers, x, cfg)
-    y = layer_norm(x, params.lnf_s, params.lnf_b)
-    return torch.einsum("bsd,dv->bsv", y, params.head.to(cfg.dtype))
+    with spans.span(spans.HEAD):
+        y = layer_norm(head_input(x), params.lnf_s, params.lnf_b)
+        return torch.einsum("bsd,dv->bsv", y, params.head.to(cfg.dtype))
 
 
 @torch.inference_mode()

@@ -31,9 +31,10 @@ from repro_torch.models import attention as A
 from repro_torch.models import moe as M
 from repro_torch.models.common import (ArchConfig, Layers, apply_rope,
                                        cross_entropy, dense_init, embed_init,
-                                       param, remat_layers, rms_norm,
-                                       stack_fields, tensor_from_numpy,
-                                       tree_to_host)
+                                       head_input, param, remat_layers,
+                                       rms_norm, stack_fields,
+                                       tensor_from_numpy, tree_to_host)
+from repro_torch.obs import spans
 
 #: The reference's ``LMParams``, ``LayerParams`` and ``MLPParams`` nodes.
 LMTree = namedtuple("LMParams", "embed layers ln_f lm_head")
@@ -178,8 +179,9 @@ def _layer_fwd(lp: LayerParams, x, cfg: ArchConfig, pos):
 
 
 def _logits(params: TransformerLM, x, cfg: ArchConfig):
-    x = rms_norm(x, params.ln_f, cfg.norm_eps)
-    return torch.einsum("bsd,dv->bsv", x, params.head().to(cfg.dtype))
+    with spans.span(spans.HEAD):
+        x = rms_norm(head_input(x), params.ln_f, cfg.norm_eps)
+        return torch.einsum("bsd,dv->bsv", x, params.head().to(cfg.dtype))
 
 
 def _forward(params: TransformerLM, tokens: torch.Tensor,
@@ -191,9 +193,10 @@ def _forward(params: TransformerLM, tokens: torch.Tensor,
 
     ``prefix_embed`` [B, P, D] prepends precomputed embeddings (the VLM
     patch stub)."""
-    x = params.embed[tokens].to(cfg.dtype)
-    if prefix_embed is not None:
-        x = torch.cat([prefix_embed.to(cfg.dtype), x], dim=1)
+    with spans.span(spans.EMBED):
+        x = params.embed[tokens].to(cfg.dtype)
+        if prefix_embed is not None:
+            x = torch.cat([prefix_embed.to(cfg.dtype), x], dim=1)
     b, s, _ = x.shape
     pos = torch.arange(s, device=x.device).expand(b, s)
     x = remat_layers(_layer_fwd, params.layers, x, cfg, pos)

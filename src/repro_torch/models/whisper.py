@@ -32,9 +32,11 @@ from torch import nn
 
 from repro_torch.models import attention as A
 from repro_torch.models.common import (ArchConfig, Layers, cross_entropy,
-                                       dense_init, embed_init, layer_norm,
-                                       param, remat_layers, stack_fields,
-                                       tensor_from_numpy, tree_to_host)
+                                       dense_init, embed_init, head_input,
+                                       layer_norm, param, remat_layers,
+                                       stack_fields, tensor_from_numpy,
+                                       tree_to_host)
+from repro_torch.obs import spans
 
 
 class FFN(nn.Module):
@@ -213,7 +215,8 @@ def _enc_layer(lp: EncLayer, x, cfg: ArchConfig):
 
 
 def _encode(params: WhisperParams, frames: torch.Tensor, cfg: ArchConfig):
-    x = frames.to(cfg.dtype) + params.enc_pos[None]
+    with spans.span(spans.EMBED):
+        x = frames.to(cfg.dtype) + params.enc_pos[None]
     x = remat_layers(_enc_layer, params.enc_layers, x, cfg)
     return layer_norm(x, params.enc_lnf_s, params.enc_lnf_b)
 
@@ -240,10 +243,14 @@ def _dec_layer(lp: DecLayer, x, enc_out, cfg: ArchConfig):
 def _decode_train(params: WhisperParams, tokens: torch.Tensor,
                   enc_out: torch.Tensor, cfg: ArchConfig):
     s = tokens.shape[1]
-    x = params.tok_embed[tokens].to(cfg.dtype) + params.dec_pos[None, :s]
+    with spans.span(spans.EMBED):
+        x = params.tok_embed[tokens].to(cfg.dtype) \
+            + params.dec_pos[None, :s]
     x = remat_layers(_dec_layer, params.dec_layers, x, enc_out, cfg)
-    x = layer_norm(x, params.dec_lnf_s, params.dec_lnf_b)
-    return torch.einsum("bsd,vd->bsv", x, params.tok_embed.to(cfg.dtype))
+    with spans.span(spans.HEAD):
+        x = layer_norm(head_input(x), params.dec_lnf_s, params.dec_lnf_b)
+        return torch.einsum("bsd,vd->bsv", x,
+                            params.tok_embed.to(cfg.dtype))
 
 
 @torch.inference_mode()

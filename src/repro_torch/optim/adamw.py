@@ -18,6 +18,8 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.obs import spans
+
 
 @dataclasses.dataclass(frozen=True)
 class AdamWConfig:
@@ -61,9 +63,10 @@ def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of every leaf's f32 sum of squares, leaf by leaf in
     order (None leaves, a weight the loss does not reach, add 0)."""
-    sq = sum(torch.sum(torch.square(x.float())) for x in tree
-             if x is not None)
-    return torch.sqrt(torch.as_tensor(sq, dtype=torch.float32))
+    with spans.span(spans.GRAD_NORM):
+        sq = sum(torch.sum(torch.square(x.float())) for x in tree
+                 if x is not None)
+        return torch.sqrt(torch.as_tensor(sq, dtype=torch.float32))
 
 
 @torch.no_grad()
@@ -75,6 +78,11 @@ def update(cfg: AdamWConfig, grads, state: AdamWState, params,
     leaf).  ``grad_norm``, the whole gradient's norm, is given where
     ``grads``, ``params`` and the moments are one rank's blocks of them
     (the sharded train step); else it is ``global_norm(grads)``."""
+    with spans.span(spans.OPTIMIZER):
+        return _update(cfg, grads, state, params, grad_norm)
+
+
+def _update(cfg: AdamWConfig, grads, state: AdamWState, params, grad_norm):
     step = state.step + 1
     lr = schedule(cfg, step)
     gn = global_norm(grads) if grad_norm is None else grad_norm

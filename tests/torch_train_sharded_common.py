@@ -1,5 +1,6 @@
-"""Rank functions of ``tests/test_torch_train_sharded.py`` (not a test
-module: the gloo ranks import it, and it imports no JAX)."""
+"""Rank functions of ``tests/test_torch_train_sharded.py`` and
+``tests/test_torch_spans.py`` (not a test module: the gloo ranks import
+it, and it imports no JAX)."""
 import torch
 
 from repro_torch.configs import get_reduced
@@ -63,3 +64,26 @@ def run_rank(mesh, name, ckdir, steps, ckpt_every):
                 step=int(out["opt_state"].step),
                 params=_host(flat_params(api.param_tree(out["params"]))))
 
+
+
+def profiled_sharded_step_rank(mesh, name):
+    """One sharded step of reduced ``name`` (batch 4 of 12 tokens) under
+    ``torch.profiler``; the names of the program's spans it yielded, in
+    order of their start."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.obs import spans
+    cfg = get_reduced(name)
+    api = registry.build(cfg, device="cpu")
+    model = api.init(torch.Generator().manual_seed(0))
+    batch = registry.make_batch(cfg, 4, 12, torch.Generator().manual_seed(1),
+                                "cpu")
+    step, _ = train.shard_train_fns(api, mesh, model, None, batch,
+                                    adamw.AdamWConfig(**OPT))
+    params, state = step.shard_params(), step.shard_opt()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        step(params, state, batch)
+    evs = sorted((e.start_ns(), e.name())
+                 for e in prof.profiler.kineto_results.events()
+                 if e.name().startswith(spans.PREFIX))
+    return [n for _, n in evs]

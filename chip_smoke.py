@@ -8,8 +8,9 @@ serving paths and the LM training path.
 Phases, in order; any failure raises and exits non-zero:
 
 1. device  — require CUDA; print the card's name and power limit;
-2. build   — compile the five kernel sources from ``src/repro_torch/csrc``
-   (the three kernels and the two backward kernels), one ``nvcc`` per
+2. build   — compile the six kernel sources from ``src/repro_torch/csrc``
+   (the three kernels, the two backward kernels and the training loss's
+   kernel), one ``nvcc`` per
    source, all started together; print ptxas's registers,
    spills and performance notes per kernel (raise on a spill) and the
    count of ``HGMMA`` (wgmma) instructions in the SASS of the flash
@@ -138,6 +139,15 @@ differ from the counts above.
    all-reduce, the reshard's seconds, K2's launches (60 forward and 30
    backward a step on every rank, all on ``wgmma``) and each rank's peak
    memory.
+
+Phase 3 also holds the training loss's kernel (``head_loss``: each row's
+f32 nll, the logits' gradient written in place) against its plain version
+at the training shapes of internvl2-1b, rwkv6-1.6b, whisper-medium and
+recurrentgemma-2b (``HEAD_LOSS_SHAPES``: the nll within 1e-5 relative,
+the gradient within one bf16 step, a read-only launch leaving the buffer)
+and times it beside its bound and the plain version.  Every training
+cell (13.-17.) raises unless that kernel launched once a step, and the
+serving cells' eval losses (8., 10.-12.) unless it launched once a loss.
 
 Phase 3 also holds K2's and K3's backward kernels against their plain
 versions' autograd (f32 and bf16, Sq != Sk, rows that see no key; a rerun
@@ -2097,6 +2107,122 @@ def phase_wkv(torch, wkv6, wkv6_ref, wkv6_seq):
                 host_ms=call_ms, library_ms=None)
 
 
+# the loss kernel at the training cells' shapes: (loss rows B × (S − 1),
+# vocabulary, width) of train-internvl2-1b and train-rwkv6-1.6b (the
+# benchmark's cells), train-whisper-medium and train-recurrentgemma-2b
+# (batch 1); internvl2's and whisper's vocabularies are padded to the next
+# multiple of 64, the other two are such multiples.  The nll is held at
+# 1e-5 relative (two f32 log-sum-exps in other orders) and the gradient at
+# one bf16 step (the f32 values before the one rounding differ in the
+# last bits); the plain version runs in row chunks of HEAD_LOSS_CHUNK to
+# keep its f32 copies small
+HEAD_LOSS_SHAPES = {"internvl_train": (16380, 151655, 896),
+                    "rwkv6_train": (16380, 65536, 2048),
+                    "whisper_train": (16380, 51865, 1024),
+                    "recurrentgemma_train": (4095, 256000, 2560)}
+HEAD_LOSS_RTOL = 1e-5
+HEAD_LOSS_CHUNK = 1024
+
+
+def bf16_steps_apart(torch, got, want) -> int:
+    """The largest distance in bf16 steps between ``got`` and ``want``
+    (0 where they are equal, +0 and -0 included)."""
+    off = (got.view(torch.int16).int() - want.view(torch.int16).int()).abs()
+    return int(torch.where(got == want, 0, off).max())
+
+
+def phase_head_loss(torch, loss_rows, loss_rows_ref, pad_vocab):
+    """The loss kernel against its plain version at ``HEAD_LOSS_SHAPES``,
+    on the buffer the training path makes (h @ the padded head, bf16,
+    logits of about unit spread, a label at V − 1): each row's nll within
+    ``HEAD_LOSS_RTOL`` relative and the mean too, the gradient written in
+    place within one bf16 step, the pad columns 0, one launch a call; a
+    read-only launch (an eval loss) leaves the buffer's bits and gives the
+    same nll bit for bit.  Timed beside its bound (the buffer read once
+    and written once at HBM's rate) and the plain version over the whole
+    buffer.  Returns internvl2-1b's numbers, every shape's in
+    ``by_shape``."""
+    by_shape = {}
+    for label, (n, v, d) in HEAD_LOSS_SHAPES.items():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device="cuda").manual_seed(13)
+        h = torch.randn(n, d, generator=gen, device="cuda").bfloat16()
+        w = (torch.randn(v, d, generator=gen, device="cuda")
+             / d ** 0.5).bfloat16()
+        buf = h @ pad_vocab(w).T
+        v_pad = buf.shape[1]
+        del h, w
+        labels = torch.randint(0, v, (n,), generator=gen, device="cuda")
+        labels[0] = v - 1
+        scale = torch.full((n,), 1.0 / n, device="cuda")
+        want_buf, ro_buf = buf.clone(), buf.clone()
+        what = f"head_loss {label} N={n} V={v} V_pad={v_pad}"
+        n0 = loss_rows.launches
+        ro = loss_rows(ro_buf, v, labels, scale, write_grad=False)
+        torch.cuda.synchronize()
+        if not same_bits(torch, ro_buf, want_buf):
+            raise AssertionError(f"{what}: the read-only launch wrote the "
+                                 "buffer")
+        want = torch.cat([
+            loss_rows_ref(want_buf[i:i + HEAD_LOSS_CHUNK], v,
+                          labels[i:i + HEAD_LOSS_CHUNK],
+                          scale[i:i + HEAD_LOSS_CHUNK])
+            for i in range(0, n, HEAD_LOSS_CHUNK)])
+        got = loss_rows(buf, v, labels, scale)
+        torch.cuda.synchronize()
+        if loss_rows.launches != n0 + 2:
+            raise AssertionError(f"{what}: {loss_rows.launches - n0} "
+                                 "launches for two calls")
+        nll_err = float(((got - want).abs() / want.abs()).max())
+        mean_err = abs(float(got.mean()) - float(want.mean())) \
+            / abs(float(want.mean()))
+        if max(nll_err, mean_err) > HEAD_LOSS_RTOL:
+            raise AssertionError(f"{what}: nll {nll_err}, mean {mean_err} "
+                                 f"relative from the plain version's")
+        steps = max(bf16_steps_apart(torch, buf[i:i + HEAD_LOSS_CHUNK],
+                                     want_buf[i:i + HEAD_LOSS_CHUNK])
+                    for i in range(0, n, HEAD_LOSS_CHUNK))
+        if steps > 1:
+            raise AssertionError(f"{what}: the gradient {steps} bf16 steps "
+                                 "from the plain version's")
+        if not bool((buf[:, v:] == 0).all()):
+            raise AssertionError(f"{what}: a pad column is not 0")
+        del want_buf
+        if not same_bits(torch, ro, got):
+            raise AssertionError(f"{what}: the read-only launch's nll "
+                                 "differs from the writing launch's")
+        kernel = lambda: loss_rows(buf, v, labels, scale)
+        ms = device_ms(torch, kernel, reps=20, samples=5)
+        call_ms = host_ms(torch, kernel, reps=20, samples=5)
+        del buf
+        torch.cuda.empty_cache()
+        plain_ms = once_ms(torch, lambda: loss_rows_ref(ro_buf, v, labels,
+                                                        scale), samples=3)
+        n_bytes = 2 * n * v_pad * ro_buf.element_size()
+        bound_ms = n_bytes / HBM_BYTES_S * 1e3
+        log(f"kernel  {what} bf16: nll within {nll_err:.3e} relative of "
+            f"the plain version's (mean {mean_err:.3e}), gradient within "
+            f"{steps} bf16 step, pad columns 0; the read-only launch left "
+            f"the buffer and gave the same nll bit for bit; device "
+            f"{ms:.6f} ms (CUDA graph of 20 calls), per eager call "
+            f"{call_ms:.6f} ms; plain version {plain_ms:.6f} ms a call "
+            f"(the whole buffer); bound "
+            f"{bound_ms:.6f} ms ({n_bytes} bytes, the buffer read and "
+            f"written once); {bound_ms / ms:.3f} of the bound; "
+            f"{_peak(torch)}")
+        by_shape[label] = dict(shape=dict(N=n, V=v, V_pad=v_pad, D=d,
+                                          dtype="bfloat16"),
+                               nll_rel_err=nll_err, grad_bf16_steps=steps,
+                               ms=ms, host_ms=call_ms, plain_ms=plain_ms,
+                               bound_ms=bound_ms, bound_by="bytes")
+        del ro_buf, ro, got, want, labels, scale
+        torch.cuda.empty_cache()
+    main = dict(by_shape["internvl_train"])
+    main["by_shape"] = by_shape
+    return main
+
+
 # K2's backward (B, H, KV, Sq, Sk, hd, causal, window, dtype, atol, rtol)
 # against the plain version's autograd on the same inputs: f32 at every
 # head dim with GQA and MQA, causal and full, windows, Sq != Sk both ways
@@ -2544,9 +2670,12 @@ def phase_lm_parity_train(torch, get_reduced, registry, train, adamw,
     plain versions' autograd) from the same weights and batch: the loss,
     the grad norm and every parameter after the AdamW update within 1e-4;
     K2's backward launched in every family with attention (f32: its
-    ``fma`` route), K3's in rwkv6.  Returns the backward launches and
-    K2's backward launches by route."""
+    ``fma`` route), K3's in rwkv6; the loss kernel once a family on the
+    card.  Returns the backward launches, K2's backward launches by route
+    and the loss kernel's launches."""
+    from repro_torch.kernels.head_loss.kernel import loss_rows
     torch.cuda.reset_peak_memory_stats()
+    head0 = loss_rows.launches
     opt = adamw.AdamWConfig(**TRAIN_OPT)
     reset_backward(fa_bwd, wkv_bwd)
     for name, over in LM_PARITY.items():
@@ -2559,6 +2688,7 @@ def phase_lm_parity_train(torch, get_reduced, registry, train, adamw,
                                     torch.Generator().manual_seed(1), "cpu")
         batch_gpu = {k: t.cuda() for k, t in batch.items()}
         before = backward_launches(fa_bwd, wkv_bwd)
+        head = loss_rows.launches
         out = {}
         for dev, api, m, bt in (("cuda", gpu, model_gpu, batch_gpu),
                                 ("cpu", cpu, model, batch)):
@@ -2574,6 +2704,11 @@ def phase_lm_parity_train(torch, get_reduced, registry, train, adamw,
             raise AssertionError(f"lm-parity-train {name}: backward "
                                  f"launches {launched}, expected "
                                  f"{want} only")
+        launched["head_loss"] = loss_rows.launches - head
+        if launched["head_loss"] != 1:
+            raise AssertionError(f"lm-parity-train {name}: the loss kernel "
+                                 f"launched {launched['head_loss']} times "
+                                 "on the card, expected 1")
         (mg, pg, sg), (mc, pc, sc) = out["cuda"], out["cpu"]
         errs = {k: _check_close(torch, mg[k].cpu(), mc[k], 1e-4, 1e-4,
                                 f"lm-parity-train {name} {k}")
@@ -2598,7 +2733,8 @@ def phase_lm_parity_train(torch, get_reduced, registry, train, adamw,
     if routes["wgmma"]:
         raise AssertionError(f"lm-parity-train (f32): K2's backward "
                              f"launches by route {routes}, expected fma only")
-    return backward_launches(fa_bwd, wkv_bwd), routes
+    return (backward_launches(fa_bwd, wkv_bwd), routes,
+            loss_rows.launches - head0)
 
 
 # the training cells at full width: (tag, config, batch, seq, the backward
@@ -2606,10 +2742,13 @@ def phase_lm_parity_train(torch, get_reduced, registry, train, adamw,
 # restores and resumes a checkpoint); 4 x 4096 is the LM cells' train_4k
 # reduction (launch/shapes.py:29), which every family's rematerialised
 # layers fit (rwkv6 peaked at 72.53 GB at 4 x 2048 before its layers
-# were); recurrentgemma at batch 1 (at batch 2 its 2.7 B weights, their
-# f32 moments, the [8192, 256000] logits' f32 loss and the
-# unrematerialised tail blocks peak near the card's 80 GB:
-# scripts/train_cell.py); whisper's batch also carries 1,500 frames a row
+# were); recurrentgemma at batch 1, the size it was given while its loss
+# still made f32 copies of the [8192, 256000] logits (at batch 2 they, its
+# 2.7 B weights, their f32 moments and the unrematerialised tail blocks
+# peaked near the card's 80 GB: scripts/train_cell.py); the fused loss
+# keeps one bf16 buffer of the loss rows' logits instead, and the batch
+# stays as the cell was (PERF.md, open questions);
+# whisper's batch also carries 1,500 frames a row
 # and internvl2's a 256-patch prefix.  The checkpoint's save, restore and
 # resume run in the first two cells, which show them bit for bit; not in
 # the others (recurrentgemma's bf16 weights and f32 moments are ~27 GB:
@@ -2699,11 +2838,14 @@ def phase_train(torch, get, registry, train, adamw, data, fa, fa_bwd, wkv,
     the peak memory; the
     restored checkpoint == the live state bit for bit; a fifth step,
     profiled; then ``run`` resumed from the checkpoint, whose step must
-    give the fifth step's loss.  A cell whose last field is False saves no
-    checkpoint and skips the restore and the resume.  Returns the run's
-    kernel launches by kernel and its losses and grad norms a step."""
+    give the fifth step's loss.  The loss kernel launches once a step, in
+    the run and in the profiled step.  A cell whose last field is False
+    saves no checkpoint and skips the restore and the resume.  Returns the
+    run's kernel launches by kernel and its losses and grad norms a
+    step."""
     import tempfile
     from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.kernels.head_loss.kernel import loss_rows
     tag, name, b, s, bwd_name, per_step, ckpt = cell
     cfg = get(name)
     # each layer (Griffin: each super-block) is rematerialised, as the
@@ -2731,6 +2873,7 @@ def phase_train(torch, get, registry, train, adamw, data, fa, fa_bwd, wkv,
         reset_flash(fa)
         reset_backward(fa_bwd, wkv_bwd)
         wkv.launches = 0
+        loss_rows.launches = 0
         t0 = time.perf_counter()
         out = train.run(api, tc, batch_size=b, seq=s, seed=0)
         torch.cuda.synchronize()
@@ -2738,10 +2881,13 @@ def phase_train(torch, get, registry, train, adamw, data, fa, fa_bwd, wkv,
         peak = torch.cuda.max_memory_allocated()
         launches = {"flash_attention": fa.launches,
                     "flash_attention_bwd": fa_bwd.launches,
-                    "wkv6": wkv.launches, "wkv6_bwd": wkv_bwd.launches}
+                    "wkv6": wkv.launches, "wkv6_bwd": wkv_bwd.launches,
+                    "head_loss": loss_rows.launches}
         fwd_name = bwd_name[:-4]
+        # the loss kernel once a step in every family
         want = {k: steps * (fwd_per_step if k == fwd_name else
-                            per_step if k == bwd_name else 0)
+                            per_step if k == bwd_name else
+                            1 if k == "head_loss" else 0)
                 for k in launches}
         if launches != want:
             raise AssertionError(f"{tag} train: kernel launches {launches}, "
@@ -2767,7 +2913,8 @@ def phase_train(torch, get, registry, train, adamw, data, fa, fa_bwd, wkv,
             f"{b * s * (steps - 1) / timed_s:.1f} tokens/s over the last "
             f"{steps - 1}; losses " + ", ".join(f"{x:.6f}" for x in losses)
             + f"; launches a step {fwd_name} {launches[fwd_name] // steps}, "
-            f"{bwd_name} {launches[bwd_name] // steps}"
+            f"{bwd_name} {launches[bwd_name] // steps}, head_loss "
+            f"{launches['head_loss'] // steps}"
             + (f" (by route {bwd_routes(fa_bwd)} in the run)"
                if bwd_name == "flash_attention_bwd" else "")
             + f"; max_memory_allocated {peak}")
@@ -2797,10 +2944,15 @@ def phase_train(torch, get, registry, train, adamw, data, fa, fa_bwd, wkv,
         reset_flash(fa)
         reset_backward(fa_bwd, wkv_bwd)
         wkv.launches = 0
+        loss_rows.launches = 0
         model, opt_state, metrics, idle = profile_train_step(
             torch, train.make_train_step(api, opt), model, opt_state, batch,
             tag)
         next_loss = float(metrics["loss"])
+        if loss_rows.launches != 1:
+            raise AssertionError(f"{tag} train: the profiled step launched "
+                                 f"the loss kernel {loss_rows.launches} "
+                                 "times, expected 1")
         del model, opt_state, metrics, batch
         gc.collect()
         torch.cuda.empty_cache()
@@ -2872,9 +3024,10 @@ def train_sharded_rank(mesh, ckdir, matmul):
     it into a single-device model and holds it bit for bit against the
     gathered weights and moments), ``drop_devices`` of
     ``SHARDED_TRAIN_DROP`` ranks, the weights and both moments resharded,
-    and one step on the survivors.  K2's launches are counted from just
-    before the full-width run to its end.  ``matmul``: the launcher's
-    cuBLAS settings, so the ranks compute what it computes."""
+    and one step on the survivors.  K2's and the loss kernel's launches
+    are counted from just before the full-width run to its end.
+    ``matmul``: the launcher's cuBLAS settings, so the ranks compute what
+    it computes."""
     import torch
     torch.backends.cuda.matmul.allow_tf32 = matmul["tf32"]
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
@@ -2884,6 +3037,7 @@ def train_sharded_rank(mesh, ckdir, matmul):
     from repro_torch.data.tokens import synthetic_batches
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention, flash_attention_bwd)
+    from repro_torch.kernels.head_loss.kernel import loss_rows
     from repro_torch.launch import elastic, train
     from repro_torch.launch.mesh import Collectives
     from repro_torch.models import registry
@@ -2926,6 +3080,7 @@ def train_sharded_rank(mesh, ckdir, matmul):
     torch.cuda.reset_peak_memory_stats()
     for fn in (flash_attention, flash_attention_bwd):
         fn.launches = fn.launches_wgmma = fn.launches_fma = 0
+    loss_rows.launches = 0
     steps = SHARDED_TRAIN_STEPS
     tc = train.TrainConfig(steps=steps, log_every=1, ckpt_every=steps,
                            ckpt_dir=ckdir, keep=1, opt=opt)
@@ -2989,6 +3144,7 @@ def train_sharded_rank(mesh, ckdir, matmul):
                bwd=dict(n=flash_attention_bwd.launches,
                         wgmma=flash_attention_bwd.launches_wgmma,
                         fma=flash_attention_bwd.launches_fma),
+               head_loss=loss_rows.launches,
                peak=torch.cuda.max_memory_allocated())
     return out
 
@@ -3058,10 +3214,11 @@ def phase_train_sharded(torch, single: dict, gpu: str) -> dict:
     (``train_sharded_rank``).  Raises unless the reduced f32 step matched
     the CPU, every step's loss and grad norm are train-smollm-135m's
     (``single``: its run's losses and grad norms) within
-    ``SHARDED_TRAIN_RTOL``, the checkpoint restored bit for bit, and K2's
+    ``SHARDED_TRAIN_RTOL``, the checkpoint restored bit for bit, K2's
     forward launched 60 times a step and its backward 30 on every rank,
-    all on ``wgmma``.  Returns K2's forward and backward launches over the
-    ranks."""
+    all on ``wgmma``, and the loss kernel once a step on every rank.
+    Returns K2's forward and backward launches and the loss kernel's over
+    the ranks."""
     import tempfile
     from repro_torch.launch.mesh import start_mesh
     gc.collect()
@@ -3139,9 +3296,14 @@ def phase_train_sharded(torch, single: dict, gpu: str) -> dict:
         f"coordinates {[r['new_coords'] for r in res]}; reshard of the "
         f"weights and both moments {max(r['reshard_s'] for r in res):.3f} s "
         f"(host clock, slowest rank; {gpu})")
-    fwd, bwd = [], []
+    fwd, bwd, head = [], [], []
     for r in res:
         n = steps + (r["new_coords"] is not None)
+        if r["head_loss"] != n:
+            raise AssertionError(f"sharded-train rank {r['rank']}: the loss "
+                                 f"kernel launched {r['head_loss']} times "
+                                 f"in {n} steps")
+        head.append(r["head_loss"])
         # the forward twice a layer: once more in the backward (remat)
         expect = {"n": 30 * n, "wgmma": 30 * n, "fma": 0}
         expect_fwd = {k: 2 * v for k, v in expect.items()}
@@ -3153,10 +3315,12 @@ def phase_train_sharded(torch, single: dict, gpu: str) -> dict:
         fwd.append(r["fwd"]["n"])
         bwd.append(r["bwd"]["n"])
     log(f"sharded-train K2 launches per rank: forward {fwd}, backward "
-        f"{bwd} (60 and 30 a step, every one on wgmma); max_memory_allocated "
+        f"{bwd} (60 and 30 a step, every one on wgmma); loss kernel {head} "
+        f"(1 a step); max_memory_allocated "
         f"per rank {[r['peak'] for r in res]}; card peak used {card.peak} "
         f"(sampled every {card.every_s} s); phase {phase_s:.3f} s ({gpu})")
-    return {"flash_attention": sum(fwd), "flash_attention_bwd": sum(bwd)}
+    return {"flash_attention": sum(fwd), "flash_attention_bwd": sum(bwd),
+            "head_loss": sum(head)}
 
 
 # --------------------------------------------------------------------------
@@ -3208,9 +3372,17 @@ def expect_routes(flash_attention, want: dict, what: str) -> dict:
 
 
 def eval_loss(torch, api, model, batch) -> float:
-    """``api.loss`` without the autograd graph (a serving cell's check)."""
+    """``api.loss`` without the autograd graph (a serving cell's check):
+    the training path's loss kernel, which grad mode off has only read
+    the logits; raises unless it launched once."""
+    from repro_torch.kernels.head_loss.kernel import loss_rows
+    n0 = loss_rows.launches
     with torch.inference_mode():
-        return float(api.loss(model, batch))
+        loss = float(api.loss(model, batch))
+    if loss_rows.launches != n0 + 1:
+        raise AssertionError(f"eval loss: {loss_rows.launches - n0} loss "
+                             "kernel launches, expected 1")
+    return loss
 
 
 def timed(torch, fn):
@@ -3637,6 +3809,9 @@ def main(argv=None) -> int:
     from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
                                                          attention_lse_ref,
                                                          attention_ref)
+    from repro_torch.kernels.head_loss.kernel import loss_rows
+    from repro_torch.kernels.head_loss.ops import pad_vocab
+    from repro_torch.kernels.head_loss.ref import loss_rows_ref
     from repro_torch.kernels.leaf_search.kernel import (leaf_search,
                                                         leaf_search_pool)
     from repro_torch.kernels.leaf_search.ops import lookup_leaves
@@ -3663,7 +3838,7 @@ def main(argv=None) -> int:
 
     # 2. build, one nvcc per source, all started together
     names = ("leaf_search", "flash_attention", "wkv6", "flash_attention_bwd",
-             "wkv6_bwd")
+             "wkv6_bwd", "head_loss")
     t0 = time.perf_counter()
     libs = dict(zip(names, build.build_all(names)))
     log(f"build   {', '.join(n + '.cu' for n in names)} in "
@@ -3686,6 +3861,9 @@ def main(argv=None) -> int:
         attention_lse_ref, _bwd_route)
     numbers["wkv6_bwd"] = phase_wkv_bwd(torch, wkv6_bwd, wkv6_bwd_ref,
                                         build.BUILD_LOGS)
+    torch.cuda.empty_cache()
+    numbers["head_loss"] = phase_head_loss(torch, loss_rows, loss_rows_ref,
+                                           pad_vocab)
     torch.cuda.empty_cache()
 
     # 4. the GPU run agrees with the CPU run
@@ -3723,27 +3901,35 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     log(f"deploy  freed: memory_allocated {torch.cuda.memory_allocated()}")
 
-    # 6.-12. the LM serving paths
+    # 6.-12. the LM serving paths; the loss kernel's launches on each path
+    # that takes an eval loss (read-only, one a loss)
+    head_paths = {}
     phase_lm_parity(torch, get_reduced, registry, (flash_attention, wkv6))
     flash_paths = phase_granite(torch, get, registry, flash_attention)
     gc.collect()
     torch.cuda.empty_cache()
+    n0 = loss_rows.launches
     launches["wkv6"] = phase_rwkv(torch, get, registry, wkv6)
+    head_paths["rwkv_loss"] = loss_rows.launches - n0
     for phase, args in ((phase_qwen, (moe,)), (phase_internvl, ()),
                         (phase_whisper, ()), (phase_griffin, (rglru,))):
         gc.collect()
         torch.cuda.empty_cache()
+        n0 = loss_rows.launches
         flash_paths.update(phase(torch, get, registry, flash_attention,
                                  *args))
+        if loss_rows.launches > n0:
+            head_paths[phase.__name__[len("phase_"):] + "_loss"] = \
+                loss_rows.launches - n0
     launches["flash_attention"] = sum(flash_paths["granite_prefill"].values())
 
     # 13.-16. the training path: reduced models card == CPU, then the five
     # full-width training cells
     gc.collect()
     torch.cuda.empty_cache()
-    parity_bwd, parity_routes = phase_lm_parity_train(
-        torch, get_reduced, registry, train, adamw, flat_params,
-        flash_attention_bwd, wkv6_bwd)
+    parity_bwd, parity_routes, head_paths["lm_parity_train"] = \
+        phase_lm_parity_train(torch, get_reduced, registry, train, adamw,
+                              flat_params, flash_attention_bwd, wkv6_bwd)
     bwd_paths = {"flash_attention_bwd": {}, "wkv6_bwd": {}}
     # K2's backward by route on each path (the train cell raises unless
     # all its launches took wgmma)
@@ -3758,6 +3944,7 @@ def main(argv=None) -> int:
             torch, get, registry, train, adamw, data, flash_attention,
             flash_attention_bwd, wkv6, wkv6_bwd, cell)
         path = f"{tag}_train"
+        head_paths[path] = run_launches["head_loss"]
         # a backward kernel's launches: over every training cell it runs in
         bwd_paths[bwd_name][path] = run_launches[bwd_name]
         launches[bwd_name] = launches.get(bwd_name, 0) + \
@@ -3778,6 +3965,8 @@ def main(argv=None) -> int:
     fa_bwd_routes[path] = {"wgmma": sharded_k2["flash_attention_bwd"],
                            "fma": 0}
     launches["flash_attention_bwd"] += sharded_k2["flash_attention_bwd"]
+    head_paths[path] = sharded_k2["head_loss"]
+    launches["head_loss"] = sum(head_paths.values())
     for bwd_name, paths in bwd_paths.items():
         paths["lm_parity_train"] = parity_bwd[bwd_name]
 
@@ -3789,7 +3978,10 @@ def main(argv=None) -> int:
         # which have no backward
         "flash_attention_bwd":
             "src/repro/kernels/flash_attention/kernel.py:74",
-        "wkv6_bwd": "src/repro/kernels/rwkv_scan/kernel.py:46"}
+        "wkv6_bwd": "src/repro/kernels/rwkv_scan/kernel.py:46",
+        # no TPU kernel: it replaces the reference's f32 loss
+        # (repro/models/common.py::cross_entropy) on the training path
+        "head_loss": None}
     kernels = [dict({"library_ms": None}, name=name, route="cuda",
                     source=f"src/repro_torch/csrc/{name}.cu",
                     replaces=replaces[name], launches=launches[name],
@@ -3807,6 +3999,7 @@ def main(argv=None) -> int:
         route: sum(r[route] for r in fa_bwd_routes.values())
         for route in ("wgmma", "fma")}
     kernels[4]["launches_by_path"] = bwd_paths["wkv6_bwd"]
+    kernels[5]["launches_by_path"] = head_paths
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,6 +22,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.checkpoint.manager import tree_flatten
+from repro_torch.kernels.head_loss.ops import head_loss as fused_head_loss
 from repro_torch.obs import spans
 
 
@@ -201,28 +202,45 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean next-token CE in fp32. logits [..., V], labels int [...].
 
-    It runs in the span ``rt/loss``; its backward opens
-    ``rt/backward/head_loss``, which the head's input closes
-    (:func:`head_input`)."""
-    with spans.span(spans.LOSS):
-        logits = logits.float()
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-        nll = logz - gold
-        if mask is not None:
-            loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1)
-        else:
-            loss = nll.mean()
-    spans.open_in_backward(loss, spans.HEAD_LOSS_BACKWARD)
-    return loss
+    The reference's composition over full logits.  The training path
+    takes :func:`head_loss` instead, which the tests hold to this."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1)
+    return nll.mean()
 
 
 def head_input(x: torch.Tensor) -> torch.Tensor:
     """``x``, the input of a model's final norm and head: the span
-    ``rt/backward/head_loss``, opened by :func:`cross_entropy`'s backward,
+    ``rt/backward/head_loss``, opened by :func:`head_loss`'s backward,
     closes once ``x`` has its gradient."""
     spans.close_in_backward(x, spans.HEAD_LOSS_BACKWARD)
     return x
+
+
+def head_loss(x: torch.Tensor, norm: Callable, w: torch.Tensor,
+              tokens: torch.Tensor, *, prefix: int = 0,
+              mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The training path's mean f32 next-token loss: ``x`` [B, P+S, D],
+    the last layer's output over ``prefix`` (P) rows and the S positions
+    of ``tokens`` [B, S]; ``norm`` the final norm; ``w`` the head as
+    [V, D]; ``mask`` [B, S−1] weights the positions that carry a loss.
+    Only those rows, the text positions but the last, are normed and
+    multiplied by the head, and the loss and the logits' gradient are one
+    kernel (:class:`repro_torch.kernels.head_loss.ops.HeadLoss`): no f32
+    copy of the logits exists.  The value of ``cross_entropy(logits[:, P:]
+    [:, :-1], tokens[:, 1:], mask)`` over the full logits.  The norm and
+    the head's product run in the span ``rt/head``, the loss in
+    ``rt/loss`` inside it, and their backward in
+    ``rt/backward/head_loss``."""
+    with spans.span(spans.HEAD):
+        h = norm(head_input(x)[:, prefix:-1])
+        loss = fused_head_loss(h, w, tokens[:, 1:], mask)
+    spans.open_in_backward(loss, spans.HEAD_LOSS_BACKWARD)
+    return loss
 
 
 def param(t: torch.Tensor) -> torch.nn.Parameter:

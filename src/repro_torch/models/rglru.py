@@ -31,11 +31,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models import attention as A
-from repro_torch.models.common import (ArchConfig, Layers, cross_entropy,
-                                       dense_init, embed_init, head_input,
-                                       param, remat_layers, rms_norm,
-                                       stack_fields, tensor_from_numpy,
-                                       tree_to_host)
+from repro_torch.models.common import (ArchConfig, Layers, dense_init,
+                                       embed_init, head_loss, param,
+                                       remat_layers, rms_norm, stack_fields,
+                                       tensor_from_numpy, tree_to_host)
 from repro_torch.obs import spans
 
 LRU_C = 8.0   # Griffin's fixed exponent scale
@@ -323,22 +322,30 @@ def _super_block(sb: SuperBlock, x, cfg: ArchConfig):
 
 def _logits(params: GriffinParams, x, cfg: ArchConfig):
     with spans.span(spans.HEAD):
-        x = rms_norm(head_input(x), params.ln_f, cfg.norm_eps)
+        x = rms_norm(x, params.ln_f, cfg.norm_eps)
         return torch.einsum("...d,dv->...v", x,
                             params.embed.T.to(cfg.dtype))
 
 
-def _forward(params: GriffinParams, tokens: torch.Tensor,
-             cfg: ArchConfig) -> torch.Tensor:
-    """tokens [B, S] -> logits [B, S, V], recording the graph when
-    gradients are enabled, with each super-block rematerialised (the same
-    ops run again in the backward, so the values do not change)."""
+def _hidden(params: GriffinParams, tokens: torch.Tensor,
+            cfg: ArchConfig) -> torch.Tensor:
+    """tokens [B, S] -> the last block's output [B, S, D], recording the
+    graph when gradients are enabled, with each super-block
+    rematerialised (the same ops run again in the backward, so the values
+    do not change)."""
     with spans.span(spans.EMBED):
         x = params.embed[tokens].to(cfg.dtype)
     x = remat_layers(_super_block, params.supers, x, cfg)
     for tl in list(params.tail)[:n_tail(cfg)]:
         x = _rec_block_train(tl, x, cfg)
-    return _logits(params, x, cfg)
+    return x
+
+
+def _forward(params: GriffinParams, tokens: torch.Tensor,
+             cfg: ArchConfig) -> torch.Tensor:
+    """tokens [B, S] -> logits [B, S, V] (:func:`_hidden`, then the
+    head)."""
+    return _logits(params, _hidden(params, tokens, cfg), cfg)
 
 
 @torch.inference_mode()
@@ -350,8 +357,11 @@ def forward(params: GriffinParams, tokens: torch.Tensor,
 
 def lm_loss(params: GriffinParams, tokens: torch.Tensor,
             cfg: ArchConfig) -> torch.Tensor:
-    logits = _forward(params, tokens, cfg)
-    return cross_entropy(logits[:, :-1], tokens[:, 1:])
+    """The mean next-token loss, the tied head run only over the
+    positions that carry one (:func:`repro_torch.models.common.head_loss`)."""
+    return head_loss(_hidden(params, tokens, cfg),
+                     lambda h: rms_norm(h, params.ln_f, cfg.norm_eps),
+                     params.embed.to(cfg.dtype), tokens)
 
 
 class GriffinState(NamedTuple):

@@ -28,9 +28,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels.rwkv_scan.ops import wkv6_seq
-from repro_torch.models.common import (ArchConfig, Layers, cross_entropy,
-                                       dense_init, embed_init, head_input,
-                                       layer_norm, param, remat_layers,
+from repro_torch.models.common import (ArchConfig, Layers, dense_init,
+                                       embed_init, head_loss, layer_norm,
+                                       param, remat_layers,
                                        tensor_from_numpy, tree_to_host)
 from repro_torch.obs import spans
 
@@ -268,17 +268,23 @@ def _layer_seq(lp: RWKVLayer, x: torch.Tensor, cfg: ArchConfig):
     return x + _channel_mix_seq(lp, h2)
 
 
-def _forward(params: RWKV6LM, tokens: torch.Tensor,
-             cfg: ArchConfig) -> torch.Tensor:
-    """Full-sequence logits [B,S,V], recording the graph when gradients
+def _hidden(params: RWKV6LM, tokens: torch.Tensor,
+            cfg: ArchConfig) -> torch.Tensor:
+    """The last layer's output [B,S,D], recording the graph when gradients
     are enabled, with each layer rematerialised (the same ops run again in
     the backward, so the values do not change)."""
     with spans.span(spans.EMBED):
         x = params.embed[tokens].to(cfg.dtype)
         x = layer_norm(x, params.ln0_s, params.ln0_b)
-    x = remat_layers(_layer_seq, params.layers, x, cfg)
+    return remat_layers(_layer_seq, params.layers, x, cfg)
+
+
+def _forward(params: RWKV6LM, tokens: torch.Tensor,
+             cfg: ArchConfig) -> torch.Tensor:
+    """Full-sequence logits [B,S,V] (:func:`_hidden`, then the head)."""
+    x = _hidden(params, tokens, cfg)
     with spans.span(spans.HEAD):
-        y = layer_norm(head_input(x), params.lnf_s, params.lnf_b)
+        y = layer_norm(x, params.lnf_s, params.lnf_b)
         return torch.einsum("bsd,dv->bsv", y, params.head.to(cfg.dtype))
 
 
@@ -291,8 +297,11 @@ def forward(params: RWKV6LM, tokens: torch.Tensor,
 
 
 def lm_loss(params: RWKV6LM, tokens: torch.Tensor, cfg: ArchConfig):
-    logits = _forward(params, tokens, cfg)
-    return cross_entropy(logits[:, :-1], tokens[:, 1:])
+    """The mean next-token loss, the head run only over the positions
+    that carry one (:func:`repro_torch.models.common.head_loss`)."""
+    return head_loss(_hidden(params, tokens, cfg),
+                     lambda h: layer_norm(h, params.lnf_s, params.lnf_b),
+                     params.head.to(cfg.dtype).T, tokens)
 
 
 @torch.inference_mode()

@@ -30,10 +30,10 @@ from torch import nn
 from repro_torch.models import attention as A
 from repro_torch.models import moe as M
 from repro_torch.models.common import (ArchConfig, Layers, apply_rope,
-                                       cross_entropy, dense_init, embed_init,
-                                       head_input, param, remat_layers,
-                                       rms_norm, stack_fields,
-                                       tensor_from_numpy, tree_to_host)
+                                       dense_init, embed_init, head_loss,
+                                       param, remat_layers, rms_norm,
+                                       stack_fields, tensor_from_numpy,
+                                       tree_to_host)
 from repro_torch.obs import spans
 
 #: The reference's ``LMParams``, ``LayerParams`` and ``MLPParams`` nodes.
@@ -180,16 +180,15 @@ def _layer_fwd(lp: LayerParams, x, cfg: ArchConfig, pos):
 
 def _logits(params: TransformerLM, x, cfg: ArchConfig):
     with spans.span(spans.HEAD):
-        x = rms_norm(head_input(x), params.ln_f, cfg.norm_eps)
+        x = rms_norm(x, params.ln_f, cfg.norm_eps)
         return torch.einsum("bsd,dv->bsv", x, params.head().to(cfg.dtype))
 
 
-def _forward(params: TransformerLM, tokens: torch.Tensor,
-             cfg: ArchConfig, *,
-             prefix_embed: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """tokens [B, S] -> logits [B, S(+P), V], recording the graph when
-    gradients are enabled, with each layer rematerialised (the same ops
-    run again in the backward, so the values do not change).
+def _hidden(params: TransformerLM, tokens: torch.Tensor, cfg: ArchConfig,
+            prefix_embed: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """tokens [B, S] -> the last layer's output [B, S(+P), D], recording
+    the graph when gradients are enabled, with each layer rematerialised
+    (the same ops run again in the backward, so the values do not change).
 
     ``prefix_embed`` [B, P, D] prepends precomputed embeddings (the VLM
     patch stub)."""
@@ -199,8 +198,15 @@ def _forward(params: TransformerLM, tokens: torch.Tensor,
             x = torch.cat([prefix_embed.to(cfg.dtype), x], dim=1)
     b, s, _ = x.shape
     pos = torch.arange(s, device=x.device).expand(b, s)
-    x = remat_layers(_layer_fwd, params.layers, x, cfg, pos)
-    return _logits(params, x, cfg)
+    return remat_layers(_layer_fwd, params.layers, x, cfg, pos)
+
+
+def _forward(params: TransformerLM, tokens: torch.Tensor,
+             cfg: ArchConfig, *,
+             prefix_embed: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """tokens [B, S] -> logits [B, S(+P), V] (:func:`_hidden`, then the
+    head over every position)."""
+    return _logits(params, _hidden(params, tokens, cfg, prefix_embed), cfg)
 
 
 @torch.inference_mode()
@@ -212,10 +218,14 @@ def forward(params: TransformerLM, tokens: torch.Tensor, cfg: ArchConfig,
 
 def lm_loss(params: TransformerLM, tokens: torch.Tensor, cfg: ArchConfig,
             prefix_embed: Optional[torch.Tensor] = None) -> torch.Tensor:
-    logits = _forward(params, tokens, cfg, prefix_embed=prefix_embed)
-    if prefix_embed is not None:
-        logits = logits[:, prefix_embed.shape[1]:]
-    return cross_entropy(logits[:, :-1], tokens[:, 1:])
+    """The mean next-token loss over the text positions (after the
+    prefix's rows), the head run only over those that carry a loss
+    (:func:`repro_torch.models.common.head_loss`)."""
+    x = _hidden(params, tokens, cfg, prefix_embed)
+    return head_loss(x, lambda h: rms_norm(h, params.ln_f, cfg.norm_eps),
+                     params.head().to(cfg.dtype).T, tokens,
+                     prefix=0 if prefix_embed is None
+                     else prefix_embed.shape[1])
 
 
 # --------------------------------------------------------------------------

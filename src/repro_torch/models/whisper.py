@@ -31,11 +31,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models import attention as A
-from repro_torch.models.common import (ArchConfig, Layers, cross_entropy,
-                                       dense_init, embed_init, head_input,
-                                       layer_norm, param, remat_layers,
-                                       stack_fields, tensor_from_numpy,
-                                       tree_to_host)
+from repro_torch.models.common import (ArchConfig, Layers, dense_init,
+                                       embed_init, head_loss, layer_norm,
+                                       param, remat_layers, stack_fields,
+                                       tensor_from_numpy, tree_to_host)
 from repro_torch.obs import spans
 
 
@@ -240,15 +239,21 @@ def _dec_layer(lp: DecLayer, x, enc_out, cfg: ArchConfig):
     return x + _ffn(lp.ffn, h)
 
 
-def _decode_train(params: WhisperParams, tokens: torch.Tensor,
-                  enc_out: torch.Tensor, cfg: ArchConfig):
+def _decode_hidden(params: WhisperParams, tokens: torch.Tensor,
+                   enc_out: torch.Tensor, cfg: ArchConfig):
+    """The decoder's last layer's output [B, S, D] over ``tokens``."""
     s = tokens.shape[1]
     with spans.span(spans.EMBED):
         x = params.tok_embed[tokens].to(cfg.dtype) \
             + params.dec_pos[None, :s]
-    x = remat_layers(_dec_layer, params.dec_layers, x, enc_out, cfg)
+    return remat_layers(_dec_layer, params.dec_layers, x, enc_out, cfg)
+
+
+def _decode_train(params: WhisperParams, tokens: torch.Tensor,
+                  enc_out: torch.Tensor, cfg: ArchConfig):
+    x = _decode_hidden(params, tokens, enc_out, cfg)
     with spans.span(spans.HEAD):
-        x = layer_norm(head_input(x), params.dec_lnf_s, params.dec_lnf_b)
+        x = layer_norm(x, params.dec_lnf_s, params.dec_lnf_b)
         return torch.einsum("bsd,vd->bsv", x,
                             params.tok_embed.to(cfg.dtype))
 
@@ -274,8 +279,12 @@ def forward(params: WhisperParams, frames: torch.Tensor,
 
 def loss(params: WhisperParams, frames: torch.Tensor, tokens: torch.Tensor,
          cfg: ArchConfig) -> torch.Tensor:
-    logits = _forward(params, frames, tokens, cfg)
-    return cross_entropy(logits[:, :-1], tokens[:, 1:])
+    """The decoder's mean next-token loss, the tied head run only over the
+    positions that carry one (:func:`repro_torch.models.common.head_loss`)."""
+    x = _decode_hidden(params, tokens, _encode(params, frames, cfg), cfg)
+    return head_loss(x, lambda h: layer_norm(h, params.dec_lnf_s,
+                                             params.dec_lnf_b),
+                     params.tok_embed.to(cfg.dtype), tokens)
 
 
 class WhisperState(NamedTuple):

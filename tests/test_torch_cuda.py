@@ -848,3 +848,120 @@ def test_train_step_on_the_card_matches_cpu(name):
         close(out["cuda"][0][k], out["cpu"][0][k], 1e-4, 1e-4)
     for g, c in zip(out["cuda"][1], out["cpu"][1]):
         close(g.detach(), c.detach(), 1e-4, 1e-4)
+
+
+# --------------------------------------------------------------------------
+# the head and its f32 loss: the kernel against its plain version
+# --------------------------------------------------------------------------
+
+# (loss rows, vocab, width, dtype): internvl2-1b's and rwkv6-1.6b's
+# training shapes (4 × 4,095 loss rows), and small odd vocabularies
+HEAD_LOSS_CASES = [(16380, 151655, 896, "bfloat16"),
+                   (16380, 65536, 2048, "bfloat16"),
+                   (300, 509, 64, "bfloat16"), (300, 509, 64, "float32")]
+
+
+def head_buffer(n, v, d, dtype, seed=0):
+    """The logits buffer the training path makes (h @ the padded head),
+    logits of about unit spread, with a label at V − 1."""
+    from repro_torch.kernels.head_loss.ops import pad_vocab
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    h = torch.randn(n, d, generator=g, device="cuda").to(dtype)
+    w = (torch.randn(v, d, generator=g, device="cuda") / d ** 0.5).to(dtype)
+    buf = h @ pad_vocab(w).T
+    labels = torch.randint(0, v, (n,), generator=g, device="cuda")
+    labels[0] = v - 1
+    scale = torch.full((n,), 1.0 / n, device="cuda")
+    return buf, labels, scale
+
+
+def within_one_ulp(got, want):
+    """bf16: the same bits or the next value either way; f32: 1e-5
+    relative to the largest entry."""
+    if got.dtype == torch.float32:
+        close(got, want, 1e-5 * float(want.abs().max()), 0)
+        return
+    off = (got.view(torch.int16).int() - want.view(torch.int16).int()).abs()
+    assert bool(((off <= 1) | (got == want)).all()), int(off.max())
+
+
+@pytest.mark.parametrize("n,v,d,dtype", HEAD_LOSS_CASES)
+def test_head_loss_kernel_matches_plain_version(n, v, d, dtype):
+    """One launch: each row's nll within 1e-5 relative of the plain
+    version's, the mean too, and the logits' gradient written in place
+    within one bf16 ulp, the pad columns 0."""
+    from repro_torch.kernels.head_loss.kernel import loss_rows
+    from repro_torch.kernels.head_loss.ref import loss_rows_ref
+    buf, labels, scale = head_buffer(n, v, d, getattr(torch, dtype))
+    want_buf = buf.clone()
+    chunk = 1024
+    want = torch.cat([loss_rows_ref(want_buf[i:i + chunk], v,
+                                    labels[i:i + chunk], scale[i:i + chunk])
+                      for i in range(0, n, chunk)])
+    n0 = loss_rows.launches
+    got = loss_rows(buf, v, labels, scale)
+    torch.cuda.synchronize()
+    assert loss_rows.launches == n0 + 1
+    close(got, want, 0, 1e-5)
+    assert abs(got.mean().item() - want.mean().item()) <= \
+        1e-5 * abs(want.mean().item())
+    for i in range(0, n, chunk):
+        within_one_ulp(buf[i:i + chunk], want_buf[i:i + chunk])
+    assert bool((buf[:, v:] == 0).all())
+
+
+def test_head_loss_kernel_without_a_gradient_only_reads():
+    from repro_torch.kernels.head_loss.kernel import loss_rows
+    from repro_torch.kernels.head_loss.ref import loss_rows_ref
+    buf, labels, scale = head_buffer(300, 509, 64, torch.bfloat16)
+    before = buf.clone()
+    got = loss_rows(buf, 509, labels, scale, write_grad=False)
+    want = loss_rows_ref(before.clone(), 509, labels, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(buf, before)
+    close(got, want, 0, 1e-5)
+
+
+@pytest.mark.parametrize("name", list(MODEL_CASES))
+def test_head_loss_one_launch_a_training_step(name):
+    """One ``make_train_step`` of every reduced family in bf16, at an odd
+    vocabulary, launches the loss kernel exactly once."""
+    from repro_torch.kernels.head_loss.kernel import loss_rows
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models.common import flat_params
+    from repro_torch.optim import adamw
+    cfg = dataclasses.replace(TC.get_reduced(name), **MODEL_CASES[name],
+                              dtype=torch.bfloat16, vocab=509)
+    api = TREG.build(cfg, device="cuda")
+    model = api.init(torch.Generator(device="cuda").manual_seed(0))
+    batch = TREG.make_batch(cfg, 2, 24, torch.Generator().manual_seed(1),
+                            "cuda")
+    step = make_train_step(api, adamw.AdamWConfig())
+    state = adamw.init(flat_params(api.param_tree(model)))
+    n0 = loss_rows.launches
+    _, _, metrics = step(model, state, batch)
+    assert loss_rows.launches == n0 + 1
+    assert torch.isfinite(metrics["loss"])
+
+
+def test_head_loss_makes_no_f32_logits():
+    """At a shape where an f32 [N, V] tensor would set the peak (3.28 GB
+    against the 1.64 GB bf16 buffer), the fused forward and backward stay
+    under three quarters of it above what their inputs hold."""
+    from repro_torch.kernels.head_loss.ops import head_loss
+    n, v, d = 8192, 100_003, 256
+    g = torch.Generator(device="cuda").manual_seed(0)
+    h = torch.randn(n, d, generator=g, device="cuda").to(
+        torch.bfloat16).requires_grad_()
+    w = (torch.randn(v, d, generator=g, device="cuda") / 16).to(
+        torch.bfloat16).requires_grad_()
+    labels = torch.randint(0, v, (n,), generator=g, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    head_loss(h, w, labels).backward()
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    f32_logits = 4 * n * v
+    assert 2 * n * v <= extra < 0.75 * f32_logits, extra

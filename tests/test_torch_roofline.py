@@ -228,12 +228,14 @@ def test_smollm_train_4k_single_cell_counts_its_program():
     # input) is back, so w_down's product is not rerun
     d_m, kv, ff = cfg.d_model, cfg.n_kv_heads, cfg.d_ff
     n_rerun = layers * (2 * d_m * h * hd + 2 * d_m * kv * hd + 2 * d_m * ff)
-    # one rank: 1 of the 256 rows, every weight gathered whole; the
-    # attention a layer: the forward's Q·Kᵀ and P·V and its lse's Q·Kᵀ
-    # (6·S²·hd a head), twice under the remat, and the plain backward's
-    # five products (10·S²·hd)
-    flops = (6 * (n_total - n_norm) * s + 2 * n_rerun * s
-             + 22 * s * s * hd * h * layers)
+    # one rank: 1 of the 256 rows, every weight gathered whole; the tied
+    # head (V a multiple of 64: no pad) over the S − 1 positions that
+    # carry a loss; the attention a layer: the forward's Q·Kᵀ and P·V and
+    # its lse's Q·Kᵀ (6·S²·hd a head), twice under the remat, and the
+    # plain backward's five products (10·S²·hd)
+    assert cfg.vocab % 64 == 0
+    flops = (6 * (n_total - n_norm) * s - 6 * cfg.vocab * d_m
+             + 2 * n_rerun * s + 22 * s * s * hd * h * layers)
     assert d["flops"] == pytest.approx(flops, rel=1e-9)
     assert d["tokens"] == 256 * s
     assert d["model_flops"] == 6 * n_total * 256 * s

@@ -149,6 +149,20 @@ and times it beside its bound and the plain version.  Every training
 cell (13.-17.) raises unless that kernel launched once a step, and the
 serving cells' eval losses (8., 10.-12.) unless it launched once a loss.
 
+Phase 3 also holds the grouped expert product (``moe_gmm``: the kernels
+``moe_gmm_kernel`` and ``moe_gmm_dw_kernel`` of the dropless MoE
+dispatch) against its plain version at the train-qwen1.5-moe-a2.7b
+cell's shapes (``MOE_GMM_COUNTS``: 65,536 sorted rows, 15 skewed groups
+and an empty one, D 2,048 and F 1,408 both ways; forward, the rows' and
+the weights' gradients within about one bf16 step, rows past the groups
+and an empty group's gradient 0, a rerun bit for bit) and times it beside
+its bound; after the training cells, the published Qwen1.5-MoE-A2.7B cut
+as that cell (12 layers, expert-parallel rank 0 of 4, 4 × 4096 tokens)
+trains a step through ``make_train_step`` and raises unless the two
+kernels launched 12 times a layer (144 a step) and no pair was dropped;
+its profiled step gives the kernels' device time beside the bound from
+its own layers' kept pairs.
+
 Phase 3 also holds K2's and K3's backward kernels against their plain
 versions' autograd (f32 and bf16, Sq != Sk, rows that see no key; a rerun
 bit for bit; K2's backward on both of its routes: ``wgmma`` for bf16 at
@@ -2223,6 +2237,188 @@ def phase_head_loss(torch, loss_rows, loss_rows_ref, pad_vocab):
     return main
 
 
+# the grouped expert product at the train-qwen1.5-moe-a2.7b cell's shape:
+# the 16,384 tokens' 65,536 sorted (token, choice) rows, of which the 15
+# held experts take a skewed 24,938 (as the cell's Zipf routing skews
+# them: 6,354 to 26,937 a layer), one expert none and one a single row
+MOE_GMM_COUNTS = [6000, 4000, 3000, 2500, 2000, 1800, 1500, 1200, 1000,
+                  800, 600, 400, 137, 0, 1]
+MOE_GMM_ROWS = 65_536
+MOE_GMM_D, MOE_GMM_F = 2048, 1408
+# the kernel rounds its f32 sum to bf16 once: within half a bf16 step
+# (2^-8 of the value at most) of the f32 plain version, plus 2^-12 of the
+# result's largest magnitude for the f32 sums' other order (~1e-6 of it)
+MOE_GMM_RTOL, MOE_GMM_ATOL = 2.0 ** -8, 2.0 ** -12
+
+
+def moe_gmm_bound_ms(pairs: int, k: int, n: int) -> float:
+    """One grouped product over ``pairs`` rows at the tensor cores' bf16
+    rate: 2·pairs·k·n operations (the operands' bytes take less time at
+    the cell's shape)."""
+    return 2.0 * pairs * k * n / BF16_TENSOR_OPS_S * 1e3
+
+
+def phase_moe_gmm(torch, gmm, gmm_dw, gmm_ref, gmm_dw_ref):
+    """Both grouped kernels against their plain version (f32 on the card,
+    TF32 off) at ``MOE_GMM_COUNTS``, gate/up (D → F) and down (F → D):
+    the forward, the rows' gradient (the same kernel on the transposed
+    weights) and the weights' gradient, each element within
+    ``MOE_GMM_RTOL`` of its value plus ``MOE_GMM_ATOL`` of the largest;
+    the rows past the groups 0, the empty group's weight gradient 0, one
+    launch a call, a rerun bit for bit.  Each timed (a CUDA graph of 20
+    calls, the output's zero fill included) beside its bound and the
+    plain version.  Returns the forward's numbers at gate/up, every
+    product's in ``by_product``."""
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    counts, m = MOE_GMM_COUNTS, MOE_GMM_ROWS
+    pairs, empty = sum(counts), counts.index(0)
+    ends = torch.tensor(counts, device="cuda").cumsum(0).to(torch.int32)
+    by_product = {}
+    for label, k, n in (("gate_up", MOE_GMM_D, MOE_GMM_F),
+                        ("down", MOE_GMM_F, MOE_GMM_D)):
+        a = torch.randn(m, k, generator=gen, device="cuda").bfloat16()
+        w = (torch.randn(len(counts), k, n, generator=gen, device="cuda")
+             / k ** 0.5).bfloat16()
+        d = torch.randn(m, n, generator=gen, device="cuda").bfloat16()
+        products = {
+            "forward": (gmm, lambda: gmm(a, w, ends),
+                        lambda: gmm_ref(a.float(), w.float(), ends)),
+            "rows_grad": (gmm, lambda: gmm(d, w.transpose(1, 2), ends),
+                          lambda: gmm_ref(d.float(),
+                                          w.float().transpose(1, 2), ends)),
+            "weights_grad": (gmm_dw, lambda: gmm_dw(a, d, ends),
+                             lambda: gmm_dw_ref(a.float(), d.float(),
+                                                ends))}
+        for kind, (wrapper, kernel, plain) in products.items():
+            what = (f"moe_gmm {label}.{kind} M={m} groups={len(counts)} "
+                    f"pairs={pairs} K={k} N={n}")
+            n0 = wrapper.launches
+            got = kernel()
+            torch.cuda.synchronize()
+            if wrapper.launches != n0 + 1:
+                raise AssertionError(f"{what}: {wrapper.launches - n0} "
+                                     "launches for one call")
+            want = plain()
+            top = want.abs().max()
+            worst = float(((got.float() - want).abs()
+                           / (MOE_GMM_RTOL * want.abs()
+                              + MOE_GMM_ATOL * top)).max())
+            if worst > 1:
+                raise AssertionError(f"{what}: {worst:.3f} of the "
+                                     "tolerance from the plain version")
+            if kind == "weights_grad":
+                if not bool((got[empty] == 0).all()):
+                    raise AssertionError(f"{what}: the empty group's "
+                                         "gradient is not 0")
+            elif not bool((got[pairs:] == 0).all()):
+                raise AssertionError(f"{what}: a row past the groups is "
+                                     "not 0")
+            if not same_bits(torch, kernel(), got):
+                raise AssertionError(f"{what}: a rerun gave other bits")
+            del want
+            ms = device_ms(torch, kernel, reps=20, samples=5)
+            plain_ms = once_ms(torch, plain, samples=3)
+            bound_ms = moe_gmm_bound_ms(pairs, k, n)
+            log(f"kernel  {what} bf16: within {worst:.3f} of the tolerance "
+                f"(2^-8 of each value + 2^-12 of the largest, from the f32 "
+                f"plain version), rows past the groups and the empty group "
+                f"0, a rerun bit for bit; device {ms:.6f} ms (CUDA graph of 20 "
+                f"calls); plain version {plain_ms:.6f} ms; bound "
+                f"{bound_ms:.6f} ms (2·P·K·N at the bf16 rate); "
+                f"{bound_ms / ms:.3f} of the bound; {_peak(torch)}")
+            by_product[f"{label}.{kind}"] = dict(
+                shape=dict(M=m, groups=len(counts), pairs=pairs, K=k, N=n,
+                           dtype="bfloat16"),
+                tol_share=worst, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by="operations")
+            del got
+        del a, w, d
+        torch.cuda.empty_cache()
+    main = dict(by_product["gate_up.forward"])
+    main["by_product"] = by_product
+    return main
+
+
+# the published Qwen1.5-MoE-A2.7B as the train-qwen1.5-moe-a2.7b cell cuts
+# it: its registry entry, the overrides, the batch
+MOE_TRAIN = ("qwen1.5-moe-a2.7b", dict(n_layers=12, ep_size=4, ep_rank=0),
+             4, 4096)
+
+
+def phase_moe_train(torch, get, registry, train, adamw, flat_params, moe,
+                    gmm, gmm_dw):
+    """The published MoE cut as its benchmark cell, in bf16: a warm
+    ``make_train_step``, then a counted step (``moe.counting``) that must
+    launch the grouped kernels 12 times a layer (3 forward, 3 in the
+    remat's replay, 3 rows' and 3 weights' gradients: 144 a step), count
+    one routing a layer (the replay is not counted) and drop no pair; then
+    a profiled step: the ``moe_gmm`` kernels' device time beside their
+    bound, each launch 2·P·D·F at the bf16 rate with P its layer's own
+    kept pairs.  Returns the kernels' launches and numbers."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    name, over, b, s = MOE_TRAIN
+    cfg = dataclasses.replace(get(name), **over)
+    api = registry.build(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = init_model(torch, api, gen, "moe")
+    batch = registry.make_batch(cfg, b, s, gen)
+    step = train.make_train_step(api, adamw.AdamWConfig(**TRAIN_OPT))
+    state = adamw.init(flat_params(api.param_tree(model)))
+    start = gmm.launches + gmm_dw.launches
+    model, state, met = step(model, state, batch)
+    torch.cuda.synchronize()
+    moe.take_counts()
+    n0 = gmm.launches + gmm_dw.launches
+    t0 = time.perf_counter()
+    with moe.counting():
+        model, state, met = step(model, state, batch)
+        torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    launched = gmm.launches + gmm_dw.launches - n0
+    counts = moe.take_counts()
+    per = 12 * cfg.n_layers
+    if launched != per:
+        raise AssertionError(f"moe train step: the grouped kernels launched "
+                             f"{launched} times, expected {per}")
+    if len(counts) != cfg.n_layers or any(c[2] for c in counts):
+        raise AssertionError(f"moe train step: counts {counts}, expected "
+                             f"one a layer and no pair dropped")
+    if not math.isfinite(float(met["loss"])):
+        raise AssertionError("moe train step: non-finite loss")
+    d, f = cfg.d_model, cfg.d_ff
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        model, state, met = step(model, state, batch)
+        torch.cuda.synchronize()
+    profiled = moe.take_counts()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type != DeviceType.CPU and "moe_gmm_" in e.key]
+    gmm_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    n_launch = sum(e.count for e in kernels)
+    pairs = [c[0] for c in profiled]
+    bound_ms = sum(12 * moe_gmm_bound_ms(p, d, f) for p in pairs)
+    if n_launch != per or len(pairs) != cfg.n_layers or gmm_ms <= 0:
+        raise AssertionError(f"moe profiled step: {n_launch} grouped "
+                             f"launches, {len(pairs)} counts, {gmm_ms} ms")
+    expected = b * s * cfg.top_k * (cfg.n_experts // cfg.ep_size) \
+        / cfg.n_experts
+    log(f"moe     {name} ({cfg.n_layers} layers, {cfg.n_experts // cfg.ep_size}"
+        f" of {cfg.n_experts} experts held) train step at {b} x {s}: "
+        f"{step_s:.3f} s = {b * s / step_s:.1f} tokens/s, loss "
+        f"{float(met['loss']):.4f}; grouped kernels {launched} launches "
+        f"a step ({launched // cfg.n_layers} a layer); kept pairs a layer "
+        f"{[c[0] for c in counts]} (expected {expected:.0f} on average), "
+        f"largest expert {max(c[1] for c in counts)}, dropped 0; profiled "
+        f"step: moe_gmm device {gmm_ms:.3f} ms in {n_launch} launches, "
+        f"bound {bound_ms:.3f} ms from its layers' own pairs "
+        f"{pairs}: {bound_ms / gmm_ms:.3f} of the bound; {_peak(torch)}")
+    del model, state, batch
+    return dict(launches=gmm.launches + gmm_dw.launches - start, step=dict(
+        pairs=pairs, ms=gmm_ms, bound_ms=bound_ms, launches=n_launch))
+
+
 # K2's backward (B, H, KV, Sq, Sk, hd, causal, window, dtype, atol, rtol)
 # against the plain version's autograd on the same inputs: f32 at every
 # head dim with GQA and MQA, causal and full, windows, Sq != Sk both ways
@@ -3814,6 +4010,8 @@ def main(argv=None) -> int:
     from repro_torch.kernels.head_loss.ref import loss_rows_ref
     from repro_torch.kernels.leaf_search.kernel import (leaf_search,
                                                         leaf_search_pool)
+    from repro_torch.kernels.moe_gmm.kernel import gmm, gmm_dw
+    from repro_torch.kernels.moe_gmm.ref import gmm_dw_ref, gmm_ref
     from repro_torch.kernels.leaf_search.ops import lookup_leaves
     from repro_torch.kernels.leaf_search.ref import (leaf_search_pool_ref,
                                                      leaf_search_ref)
@@ -3838,7 +4036,7 @@ def main(argv=None) -> int:
 
     # 2. build, one nvcc per source, all started together
     names = ("leaf_search", "flash_attention", "wkv6", "flash_attention_bwd",
-             "wkv6_bwd", "head_loss")
+             "wkv6_bwd", "head_loss", "moe_gmm")
     t0 = time.perf_counter()
     libs = dict(zip(names, build.build_all(names)))
     log(f"build   {', '.join(n + '.cu' for n in names)} in "
@@ -3864,6 +4062,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     numbers["head_loss"] = phase_head_loss(torch, loss_rows, loss_rows_ref,
                                            pad_vocab)
+    torch.cuda.empty_cache()
+    numbers["moe_gmm"] = phase_moe_gmm(torch, gmm, gmm_dw, gmm_ref,
+                                       gmm_dw_ref)
     torch.cuda.empty_cache()
 
     # 4. the GPU run agrees with the CPU run
@@ -3956,6 +4157,13 @@ def main(argv=None) -> int:
                                    "fma": 0}
         else:
             wkv_paths[path] = run_launches["wkv6"]
+    # the published MoE cut as train-qwen1.5-moe-a2.7b: the grouped kernels
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_run = phase_moe_train(torch, get, registry, train, adamw,
+                              flat_params, moe, gmm, gmm_dw)
+    launches["moe_gmm"] = moe_run["launches"]
+    numbers["moe_gmm"]["train_step"] = moe_run["step"]
     # 17. train-smollm-135m-sharded: four gloo ranks, a drop, a reshard
     sharded_k2 = phase_train_sharded(torch, curves["smollm"], line)
     path = "smollm_sharded_train"
@@ -3981,7 +4189,10 @@ def main(argv=None) -> int:
         "wkv6_bwd": "src/repro/kernels/rwkv_scan/kernel.py:46",
         # no TPU kernel: it replaces the reference's f32 loss
         # (repro/models/common.py::cross_entropy) on the training path
-        "head_loss": None}
+        "head_loss": None,
+        # no TPU kernel: the reference's capacity-bounded expert einsums
+        # are XLA's; the dropless dispatch's groups have no library product
+        "moe_gmm": None}
     kernels = [dict({"library_ms": None}, name=name, route="cuda",
                     source=f"src/repro_torch/csrc/{name}.cu",
                     replaces=replaces[name], launches=launches[name],
@@ -4000,6 +4211,8 @@ def main(argv=None) -> int:
         for route in ("wgmma", "fma")}
     kernels[4]["launches_by_path"] = bwd_paths["wkv6_bwd"]
     kernels[5]["launches_by_path"] = head_paths
+    kernels[6]["launches_by_path"] = {"qwen1.5_moe_train":
+                                      launches["moe_gmm"]}
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

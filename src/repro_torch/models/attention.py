@@ -31,25 +31,44 @@ NEG_INF = -1e30
 
 #: The reference's ``AttnParams`` node.
 AttnTree = namedtuple("AttnParams", "wq wk wv wo")
+#: The same node with the q/k/v biases (``cfg.qkv_bias``), which the
+#: reference has not: their leaves follow the weights'.
+AttnBiasTree = namedtuple("AttnParams", "wq wk wv wo bq bk bv")
 
 
 class AttnParams(nn.Module):
-    """wq [D,H,hd], wk/wv [D,KV,hd], wo [H,hd,D] (the reference's shapes)."""
+    """wq [D,H,hd], wk/wv [D,KV,hd], wo [H,hd,D] (the reference's
+    shapes); bq [H,hd], bk/bv [KV,hd] or None (no biases)."""
 
-    def __init__(self, wq, wk, wv, wo):
+    def __init__(self, wq, wk, wv, wo, bq=None, bk=None, bv=None):
         super().__init__()
         self.wq, self.wk, self.wv, self.wo = (param(t) for t in
                                               (wq, wk, wv, wo))
+        self.bq, self.bk, self.bv = (None if t is None else param(t)
+                                     for t in (bq, bk, bv))
+
+
+def tree_class(params: AttnParams):
+    """:data:`AttnBiasTree` for a layer with biases, else
+    :data:`AttnTree`."""
+    return AttnTree if params.bq is None else AttnBiasTree
 
 
 def init_attn(gen: torch.Generator, cfg: ArchConfig, dtype=None,
               device=None) -> AttnParams:
+    """The weights drawn from ``gen``; the biases, with
+    ``cfg.qkv_bias``, zero."""
     dtype = dtype or cfg.dtype
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     init = lambda shape: dense_init(gen, shape, in_axis=0, dtype=dtype,
                                     device=device)
+    zeros = lambda *shape: torch.zeros(shape, dtype=dtype, device=device)
+    bias = cfg.qkv_bias
     return AttnParams(wq=init((d, h, hd)), wk=init((d, kv, hd)),
-                      wv=init((d, kv, hd)), wo=init((h, hd, d)))
+                      wv=init((d, kv, hd)), wo=init((h, hd, d)),
+                      bq=zeros(h, hd) if bias else None,
+                      bk=zeros(kv, hd) if bias else None,
+                      bv=zeros(kv, hd) if bias else None)
 
 
 def _group_heads(q: torch.Tensor, n_kv: int) -> torch.Tensor:
@@ -69,11 +88,19 @@ def _sdpa_train(q, k, v, *, causal: bool, window: int = 0,
     return flash_sdpa(q, k, v, causal=causal, window=window)
 
 
-def _qkv(params: AttnParams, x: torch.Tensor):
-    q = torch.einsum("bsd,dhk->bshk", x, params.wq)
-    k = torch.einsum("bsd,dhk->bshk", x, params.wk)
-    v = torch.einsum("bsd,dhk->bshk", x, params.wv)
-    return q, k, v
+def _proj(x: torch.Tensor, w: torch.Tensor, b) -> torch.Tensor:
+    """x [B,S,D] through w [D,H,hd], plus the bias b [H,hd] if any."""
+    y = torch.einsum("bsd,dhk->bshk", x, w)
+    return y if b is None else y + b
+
+
+def _qkv(params: AttnParams, x: torch.Tensor, kv_src=None):
+    """q from ``x``, k and v from ``kv_src`` (``x`` by default), each
+    with its bias where the layer has one."""
+    kv_src = x if kv_src is None else kv_src
+    return (_proj(x, params.wq, params.bq),
+            _proj(kv_src, params.wk, params.bk),
+            _proj(kv_src, params.wv, params.bv))
 
 
 def attention_train(params: AttnParams, x: torch.Tensor, cfg: ArchConfig,
@@ -95,9 +122,7 @@ def cross_attention(params: AttnParams, x: torch.Tensor,
                     kv_src: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     """Encoder-decoder cross attention (no mask, no rope): queries from
     ``x`` [B,Sq,D], keys and values from ``kv_src`` [B,Sk,D]."""
-    q = torch.einsum("bsd,dhk->bshk", x, params.wq)
-    k = torch.einsum("bsd,dhk->bshk", kv_src, params.wk)
-    v = torch.einsum("bsd,dhk->bshk", kv_src, params.wv)
+    q, k, v = _qkv(params, x, kv_src)
     o = _sdpa_train(q, k, v, causal=False)
     return torch.einsum("bshk,hkd->bsd", o, params.wo)
 

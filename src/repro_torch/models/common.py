@@ -79,6 +79,10 @@ class ArchConfig:
     moe_pad_experts: bool = False
     rwkv_chunk: int = 0
 
+    # The port's own options (:data:`PORT_OPTIONS`) are plain class
+    # attributes here, with :class:`PortArchConfig`'s defaults, so an
+    # ArchConfig keeps the reference's fields one for one.
+
     @property
     def hd(self) -> int:
         if self.head_dim:
@@ -88,6 +92,16 @@ class ArchConfig:
     @property
     def is_moe(self) -> bool:
         return self.n_experts > 0
+
+    @property
+    def held_experts(self) -> int:
+        """Routed experts this rank holds: ``n_experts / ep_size``."""
+        if self.n_experts % self.ep_size or not 0 <= self.ep_rank \
+                < self.ep_size:
+            raise ValueError(f"{self.n_experts} experts cannot be shared "
+                             f"by ep_size {self.ep_size} at rank "
+                             f"{self.ep_rank}")
+        return self.n_experts // self.ep_size
 
     def reduced(self, **overrides) -> "ArchConfig":
         """A smoke-test-sized config of the same family (CPU friendly)."""
@@ -113,6 +127,32 @@ class ArchConfig:
         )
         small.update(overrides)
         return dataclasses.replace(self, **small)
+
+
+@dataclasses.dataclass(frozen=True)
+class PortArchConfig(ArchConfig):
+    """An :class:`ArchConfig` with the port's own options as fields, for
+    a configuration the reference does not have (a published model's
+    variant that needs them); ``dataclasses.replace`` takes them."""
+
+    # each default is the reference's behaviour
+    norm_topk_prob: bool = True       # renormalise the top-k gates to sum 1
+    shared_expert_gate: bool = False  # the shared expert times sigmoid(x·w_sg)
+    moe_dropless: bool = False        # sorted dispatch, no capacity or drop
+    moe_router_f32: bool = True       # the router's weight in f32, else dtype
+    ep_size: int = 1                  # expert-parallel ranks sharing a layer
+    ep_rank: int = 0                  # this rank: experts [r·E/ep, (r+1)·E/ep)
+    qkv_bias: bool = False            # biases on the q, k and v projections
+
+
+#: The port's own options: :class:`PortArchConfig`'s fields past
+#: :class:`ArchConfig`'s, which has each as a class attribute with the same
+#: default.
+PORT_OPTIONS = tuple(f.name for f in dataclasses.fields(PortArchConfig)
+                     [len(dataclasses.fields(ArchConfig)):])
+for _name in PORT_OPTIONS:
+    setattr(ArchConfig, _name, getattr(PortArchConfig, _name))
+del _name
 
 
 # --------------------------------------------------------------------------

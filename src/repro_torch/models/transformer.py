@@ -155,11 +155,12 @@ def param_tree(params: TransformerLM, cfg: ArchConfig) -> LMTree:
         embed=params.embed,
         layers=LayerTree(
             ln_attn=Layers([lp.ln_attn for lp in ly]),
-            attn=stack_fields(A.AttnTree, [lp.attn for lp in ly]),
+            attn=stack_fields(A.tree_class(ly[0].attn),
+                              [lp.attn for lp in ly]),
             ln_mlp=Layers([lp.ln_mlp for lp in ly]),
             mlp=None if cfg.is_moe else stack_fields(
                 MLPTree, [lp.mlp for lp in ly]),
-            moe=stack_fields(M.MoETree, [lp.moe for lp in ly])
+            moe=stack_fields(M.tree_class(ly[0].moe), [lp.moe for lp in ly])
             if cfg.is_moe else None),
         ln_f=params.ln_f, lm_head=params.lm_head)
 

@@ -48,6 +48,10 @@ REMAT_REPLAY = PREFIX + "remat_replay"
 HEAD = PREFIX + "head"
 LOSS = PREFIX + "loss"
 HEAD_LOSS_BACKWARD = PREFIX + "backward/head_loss"
+MOE_ROUTE = PREFIX + "moe/route"
+MOE_EXPERTS = PREFIX + "moe/experts"
+MOE_SHARED = PREFIX + "moe/shared"
+MOE_EXPERTS_BACKWARD = PREFIX + "backward/moe_experts"
 OPTIMIZER = PREFIX + "optimizer"
 GRAD_NORM = PREFIX + "grad_norm"
 LOSS_READ = PREFIX + "loss_read"

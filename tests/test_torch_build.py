@@ -62,6 +62,15 @@ def test_the_wkv6_library_covers_the_tma_header():
     assert names == ["wkv6.cu", "tma.cuh"]
 
 
+def test_the_moe_gmm_library_covers_the_wgmma_and_tma_headers():
+    """The grouped product builds on the forward's wgmma header
+    (descriptors, fences) and the TMA header."""
+    names = [p.name for p in build._sources("moe_gmm")]
+    assert sorted(names) == ["flash_attention_wgmma.cuh", "moe_gmm.cu",
+                             "tma.cuh"]
+    assert names[0] == "moe_gmm.cu"
+
+
 def test_the_flash_bwd_library_covers_the_wgmma_headers():
     """The backward's wgmma header, the forward's wgmma header it builds
     on (descriptors, products, tensor maps) and the TMA header."""

@@ -965,3 +965,148 @@ def test_head_loss_makes_no_f32_logits():
     extra = torch.cuda.max_memory_allocated() - base
     f32_logits = 4 * n * v
     assert 2 * n * v <= extra < 0.75 * f32_logits, extra
+
+
+# --------------------------------------------------------------------------
+# the grouped expert product (kernels/moe_gmm): bf16 within 1e-2 of each
+# result's largest magnitude (one bf16 rounding of an f32 sum, whose terms
+# the kernel and the f32 plain version add in another order); 0 exactly
+# past the groups and for an empty group; the same bits on every call
+# --------------------------------------------------------------------------
+
+def gmm_inputs(counts, k, n, seed=0, extra=7):
+    """Rows sorted by group (``counts`` each, then ``extra`` rows past the
+    groups), a [M, K] and w [G, K, N] in bf16, the groups' ends."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    m = sum(counts) + extra
+    a = torch.randn(m, k, generator=g, device="cuda").to(torch.bfloat16)
+    w = (torch.randn(len(counts), k, n, generator=g, device="cuda")
+         / k ** 0.5).to(torch.bfloat16)
+    ends = torch.tensor(counts, device="cuda").cumsum(0).to(torch.int32)
+    return a, w, ends
+
+
+GMM_CASES = {
+    "uneven": ([300, 5, 1, 129, 128, 700], 256, 192),
+    "empty": ([0, 64, 0, 0, 200, 0], 128, 128),
+    "odd_widths": ([17, 250, 3], 136, 88),
+    "cell": ([1092] * 15, 2048, 1408),
+}
+
+
+def rel_close(got, want, rtol=1e-2):
+    scale = want.abs().max().clamp(min=1e-30)
+    assert float((got.float() - want.float()).abs().max() / scale) <= rtol
+
+
+@pytest.mark.parametrize("case", list(GMM_CASES))
+def test_moe_gmm_kernel_matches_plain_version(case):
+    from repro_torch.kernels.moe_gmm.kernel import gmm, gmm_dw
+    from repro_torch.kernels.moe_gmm.ref import gmm_dw_ref, gmm_ref
+    counts, k, n = GMM_CASES[case]
+    a, w, ends = gmm_inputs(counts, k, n)
+    n0 = gmm.launches
+    got = gmm(a, w, ends)
+    want = gmm_ref(a.float(), w.float(), ends)
+    assert gmm.launches == n0 + 1 and got.dtype == torch.bfloat16
+    rel_close(got, want)
+    assert bool((got[int(ends[-1]):] == 0).all())
+    # the rows' gradient: the same kernel on the transposed weights
+    d = torch.randn(a.shape[0], n, device="cuda").to(torch.bfloat16)
+    got_dx = gmm(d, w.transpose(1, 2), ends)
+    rel_close(got_dx, gmm_ref(d.float(), w.float().transpose(1, 2), ends))
+    got_dw = gmm_dw(a, d, ends)
+    want_dw = gmm_dw_ref(a.float(), d.float(), ends)
+    rel_close(got_dw, want_dw)
+    for i, c in enumerate(counts):
+        if c == 0:
+            assert bool((got_dw[i] == 0).all())
+    torch.cuda.synchronize()
+    assert torch.equal(gmm(a, w, ends), got)
+    assert torch.equal(gmm_dw(a, d, ends), got_dw)
+
+
+def test_moe_gmm_autograd_matches_the_plain_version():
+    from repro_torch.kernels.moe_gmm.ops import grouped_mm
+    counts, k, n = GMM_CASES["uneven"]
+    a, w, ends = gmm_inputs(counts, k, n, seed=3)
+    d = torch.randn(a.shape[0], n, device="cuda").to(torch.bfloat16)
+    a1, w1 = a.clone().requires_grad_(), w.clone().requires_grad_()
+    (grouped_mm(a1, w1, ends) * d).sum().backward()
+    a2 = a.float().cpu().requires_grad_()
+    w2 = w.float().cpu().requires_grad_()
+    (grouped_mm(a2, w2, ends.cpu())
+     * d.float().cpu()).sum().backward()
+    rel_close(a1.grad.cpu(), a2.grad)
+    rel_close(w1.grad.cpu(), w2.grad)
+    assert bool((a1.grad[int(ends[-1]):] == 0).all())
+
+
+def test_moe_gmm_takes_only_bf16_on_the_card():
+    from repro_torch.kernels.moe_gmm.kernel import gmm
+    a, w, ends = gmm_inputs([4, 4], 64, 64)
+    with pytest.raises(ValueError):
+        gmm(a.float(), w.float(), ends)
+    with pytest.raises(ValueError):
+        gmm(a, w, ends.long())
+
+
+def published_moe_small(**over):
+    return dataclasses.replace(
+        TC.get("qwen1.5-moe-a2.7b"), n_layers=2, d_model=256, n_heads=4,
+        n_kv_heads=4, d_ff=128, vocab=509, n_experts=16, top_k=4,
+        shared_expert_ff=256, ep_size=4, ep_rank=0, **over)
+
+
+def test_moe_dropless_layer_never_syncs_with_the_host():
+    """A dropless layer's forward and backward on the card under
+    ``torch.cuda.set_sync_debug_mode("error")``: no ``.item()``, no host
+    read of a size; 3 grouped products forward and 6 backward."""
+    from repro_torch.kernels.moe_gmm.kernel import gmm, gmm_dw
+    from repro_torch.models import moe as M
+    cfg = published_moe_small()
+    api = TREG.build(cfg, device="cuda")
+    model = api.init(torch.Generator(device="cuda").manual_seed(0))
+    x = torch.randn(2, 64, cfg.d_model, device="cuda").to(
+        torch.bfloat16).requires_grad_()
+    moe = model.layers[0].moe
+    n0, d0 = gmm.launches, gmm_dw.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with M.counting():
+            out = M.moe_ffn(moe, x, cfg)
+        out.float().square().sum().backward()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert (gmm.launches - n0, gmm_dw.launches - d0) == (6, 3)
+    assert torch.isfinite(x.grad.float()).all()
+    c = M.read_counters([moe])[0]
+    assert c["dropped"] == 0 and 0 < c["largest"] <= c["kept"] <= 2 * 64 * 4
+
+
+def test_moe_published_train_step_on_the_card_matches_cpu():
+    """One bf16 step of the small published model on the card against the
+    same step on the CPU (the plain grouped product there): the loss
+    within 2e-2 (bf16 activations, routed alike but for near ties), and
+    the grouped kernels launched 12 times a layer (3 forward, 3 in the
+    remat's replay, 6 backward)."""
+    from repro_torch.kernels.moe_gmm.kernel import gmm, gmm_dw
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models.common import flat_params
+    from repro_torch.optim import adamw
+    cfg = published_moe_small()
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        api = TREG.build(cfg, device=dev)
+        model = api.init(torch.Generator().manual_seed(0))
+        batch = TREG.make_batch(cfg, 2, 64, torch.Generator().manual_seed(1),
+                                dev)
+        step = make_train_step(api, adamw.AdamWConfig())
+        state = adamw.init(flat_params(api.param_tree(model)))
+        n0 = gmm.launches + gmm_dw.launches
+        _, _, met = step(model, state, batch)
+        losses[dev] = float(met["loss"])
+        if dev == "cuda":
+            assert gmm.launches + gmm_dw.launches - n0 == 12 * cfg.n_layers
+    assert abs(losses["cuda"] - losses["cpu"]) <= 2e-2 * abs(losses["cpu"])

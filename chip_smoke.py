@@ -8,9 +8,9 @@ serving paths and the LM training path.
 Phases, in order; any failure raises and exits non-zero:
 
 1. device  — require CUDA; print the card's name and power limit;
-2. build   — compile the six kernel sources from ``src/repro_torch/csrc``
-   (the three kernels, the two backward kernels and the training loss's
-   kernel), one ``nvcc`` per
+2. build   — compile the eight kernel sources from ``src/repro_torch/csrc``
+   (the three kernels, the two backward kernels, the training loss's
+   kernel, the grouped expert product and AdamW's), one ``nvcc`` per
    source, all started together; print ptxas's registers,
    spills and performance notes per kernel (raise on a spill) and the
    count of ``HGMMA`` (wgmma) instructions in the SASS of the flash
@@ -162,6 +162,16 @@ trains a step through ``make_train_step`` and raises unless the two
 kernels launched 12 times a layer (144 a step) and no pair was dropped;
 its profiled step gives the kernels' device time beside the bound from
 its own layers' kept pairs.
+
+Phase 3 also holds AdamW's kernels (``adamw_update_kernel``, and the
+gradient norm's ``adamw_sumsq_kernel`` with its finalize) over rwkv6-1.6b's
+own 582 leaves at full width against the plain loop they replaced, two
+clipped steps bit for bit for every weight and moment, the norm within
+1e-6 of an f64 sum and equal in two runs, and times them beside their
+byte bound and the plain loop.  Every training cell (13.-17.) raises
+unless they launched one step's worth a step: one update launch and two
+of the norm (its finalize) up to 640 leaves, every leaf sent to the update
+and, off the sharded path, no gradient copied.
 
 Phase 3 also holds K2's and K3's backward kernels against their plain
 versions' autograd (f32 and bf16, Sq != Sk, rows that see no key; a rerun
@@ -2339,6 +2349,152 @@ def phase_moe_gmm(torch, gmm, gmm_dw, gmm_ref, gmm_dw_ref):
     return main
 
 
+# AdamW's kernels over train-rwkv6-1.6b's own leaves: the model's 582
+# tensors (1.60 B bf16 weights, f32 moments), bf16 gradients of about 1e-3
+# (a norm of about 40, so the clip's scale is below 1) and a second step's
+# fresh gradients; the norm within ADAMW_NORM_RTOL of an f64 sum (the
+# kernel sums in f64 in a fixed order, so its one f32 rounding is ~6e-8)
+ADAMW_CELL = "rwkv6-1.6b"
+ADAMW_STEPS = 2
+ADAMW_NORM_RTOL = 1e-6
+
+
+def reset_adamw(kernel) -> None:
+    kernel.update.launches = kernel.update.leaves = kernel.update.copied = 0
+    kernel.sumsq.launches = 0
+
+
+def adamw_launches(kernel) -> dict:
+    """The AdamW kernels' launches so far: the update's, and the norm's
+    (its finalize included)."""
+    return {"update": kernel.update.launches, "sumsq": kernel.sumsq.launches}
+
+
+def adamw_per_step(numels) -> dict:
+    """The AdamW kernels' launches in one step over leaves of ``numels``
+    elements: one update launch a table of leaves, the norm's as many and
+    its finalize."""
+    from repro_torch.kernels.adamw import ops
+    n = len(ops.plan(numels))
+    return {"update": n, "sumsq": n + 1}
+
+
+def expect_adamw(kernel, numels, steps: int, what: str) -> dict:
+    """Raise unless the AdamW kernels launched ``steps`` steps' worth over
+    leaves of ``numels`` elements, every leaf sent to the update kernel
+    and no gradient copied; returns the launches."""
+    got = adamw_launches(kernel)
+    want = {k: steps * n for k, n in adamw_per_step(numels).items()}
+    leaves = steps * sum(1 for n in numels if n)
+    if got != want or kernel.update.leaves != leaves \
+            or kernel.update.copied:
+        raise AssertionError(
+            f"{what}: AdamW launches {got}, {kernel.update.leaves} leaves, "
+            f"{kernel.update.copied} gradients copied; expected {want}, "
+            f"{leaves} and 0")
+    return got
+
+
+def phase_adamw(torch, get, registry, flat_params, kernel, ref, adamw):
+    """AdamW's kernels (``adamw_update_kernel``, ``adamw_sumsq_kernel`` and
+    its finalize) over ``ADAMW_CELL``'s leaves at full width, against the
+    plain loop they replaced (``kernels/adamw/ref.py``) on the card: for
+    ``ADAMW_STEPS`` steps the same scalars (the schedule's lr, the clip's
+    scale from the kernel's norm, the bias corrections) go to both, and
+    every weight and moment must come out bit for bit; the norm within
+    ``ADAMW_NORM_RTOL`` of an f64 sum and equal in two runs; one update
+    launch and two of the norm a step.  Timed over 20 eager calls each
+    (CUDA events) beside the byte bound (the norm reads each gradient
+    once; the update reads gradient, weight and moments and writes weight
+    and moments: 24 B a bf16 weight for both) and the plain loop."""
+    cfg = get(ADAMW_CELL)
+    api = registry.build(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    model = init_model(torch, api, gen, "adamw")
+    params = [p.detach() for p in flat_params(api.param_tree(model))]
+    ms = [torch.zeros(p.shape, device="cuda") for p in params]
+    vs = [torch.zeros(p.shape, device="cuda") for p in params]
+    twin = [x.clone() for x in params + ms + vs]
+    n = len(params)
+    p2, m2, v2 = twin[:n], twin[n:2 * n], twin[2 * n:]
+    numels = [p.numel() for p in params]
+    weights = sum(numels)
+    opt = adamw.AdamWConfig(**TRAIN_OPT)
+    hyper = dict(b1=opt.b1, b2=opt.b2, eps=opt.eps,
+                 weight_decay=opt.weight_decay)
+    what = (f"adamw {ADAMW_CELL}'s {n} leaves ({weights} weights, "
+            f"{str(cfg.dtype)[6:]})")
+    reset_adamw(kernel)
+    for t in range(1, ADAMW_STEPS + 1):
+        grads = [torch.empty_like(p).normal_(0.0, 1e-3, generator=gen)
+                 for p in params]
+        step = torch.tensor(t, dtype=torch.int32, device="cuda")
+        lr = adamw.schedule(opt, step)
+        gn = kernel.sumsq(grads)
+        scale = torch.clamp(opt.clip_norm / (gn + 1e-9), max=1.0)
+        bc1, bc2 = 1 - opt.b1 ** step.float(), 1 - opt.b2 ** step.float()
+        kernel.update(grads, ms, vs, params, lr, scale, bc1, bc2, **hyper)
+        ref.update_ref(grads, m2, v2, p2, lr, scale, bc1, bc2, opt.b1,
+                       opt.b2, opt.eps, opt.weight_decay)
+        torch.cuda.synchronize()
+        differ = sum(not same_bits(torch, a, b)
+                     for a, b in zip(params + ms + vs, p2 + m2 + v2))
+        if differ:
+            raise AssertionError(f"{what} step {t}: {differ} of {3 * n} "
+                                 "weights and moments differ from the plain "
+                                 "loop's bits")
+        if float(scale) >= 1:
+            raise AssertionError(f"{what} step {t}: norm {float(gn)} did not "
+                                 "clip")
+    launched = expect_adamw(kernel, numels, ADAMW_STEPS, what)
+    del twin, p2, m2, v2
+    torch.cuda.empty_cache()
+    want = math.sqrt(sum(float(g.double().square().sum()) for g in grads))
+    again = kernel.sumsq(grads)
+    norm_err = abs(float(gn) - want) / want
+    if norm_err > ADAMW_NORM_RTOL or not same_bits(torch, again, gn):
+        raise AssertionError(f"{what}: norm {float(gn)!r} and again "
+                             f"{float(again)!r}, f64 {want!r}: {norm_err:.3e} "
+                             f"relative")
+    update = lambda: kernel.update(grads, ms, vs, params, lr, scale, bc1,
+                                   bc2, **hyper)
+    norm_ms = host_ms(torch, lambda: kernel.sumsq(grads), reps=20, samples=3)
+    update_ms = host_ms(torch, update, reps=20, samples=3)
+    plain_norm_ms = once_ms(torch, lambda: ref.global_norm_ref(grads))
+    plain_update_ms = once_ms(torch, lambda: ref.update_ref(
+        grads, ms, vs, params, lr, scale, bc1, bc2, opt.b1, opt.b2, opt.eps,
+        opt.weight_decay))
+    g_bytes = sum(g.numel() * g.element_size() for g in grads)
+    p_bytes = sum(p.numel() * p.element_size() for p in params)
+    norm_bound = g_bytes / HBM_BYTES_S * 1e3
+    update_bound = (g_bytes + 2 * p_bytes + 16 * weights) / HBM_BYTES_S * 1e3
+    log(f"kernel  {what}: {ADAMW_STEPS} steps, clipped, bit for bit the "
+        f"plain loop's weights and moments; launches {launched} "
+        f"({adamw_per_step(numels)} a step); norm {float(gn)!r} within "
+        f"{norm_err:.3e} of the f64 sum, equal in two runs; device (20 "
+        f"eager calls, CUDA events): norm {norm_ms:.6f} ms (bound "
+        f"{norm_bound:.6f}, {norm_bound / norm_ms:.3f} of it), update "
+        f"{update_ms:.6f} ms (bound {update_bound:.6f}, "
+        f"{update_bound / update_ms:.3f}), both "
+        f"{norm_ms + update_ms:.6f} ms against {norm_bound + update_bound:.6f}"
+        f" ({(norm_bound + update_bound) / (norm_ms + update_ms):.3f}); plain "
+        f"loop: norm {plain_norm_ms:.6f} ms, update {plain_update_ms:.6f} "
+        f"ms; {_peak(torch)}")
+    out = dict(shape=dict(config=ADAMW_CELL, leaves=n, weights=weights,
+                          dtype=str(cfg.dtype)[6:]),
+               norm_rel_err=norm_err, ms=norm_ms + update_ms,
+               bound_ms=norm_bound + update_bound, bound_by="bytes",
+               norm_ms=norm_ms, norm_bound_ms=norm_bound,
+               update_ms=update_ms, update_bound_ms=update_bound,
+               plain_norm_ms=plain_norm_ms, plain_update_ms=plain_update_ms)
+    del model, params, ms, vs, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 # the published Qwen1.5-MoE-A2.7B as the train-qwen1.5-moe-a2.7b cell cuts
 # it: its registry entry, the overrides, the batch
 MOE_TRAIN = ("qwen1.5-moe-a2.7b", dict(n_layers=12, ep_size=4, ep_rank=0),
@@ -2351,11 +2507,14 @@ def phase_moe_train(torch, get, registry, train, adamw, flat_params, moe,
     ``make_train_step``, then a counted step (``moe.counting``) that must
     launch the grouped kernels 12 times a layer (3 forward, 3 in the
     remat's replay, 3 rows' and 3 weights' gradients: 144 a step), count
-    one routing a layer (the replay is not counted) and drop no pair; then
-    a profiled step: the ``moe_gmm`` kernels' device time beside their
+    one routing a layer (the replay is not counted), drop no pair and
+    launch AdamW's kernels one step's worth over the cell's leaves; then a
+    profiled step: the ``moe_gmm`` kernels' device time beside their
     bound, each launch 2·P·D·F at the bf16 rate with P its layer's own
-    kept pairs.  Returns the kernels' launches and numbers."""
+    kept pairs.  Returns the kernels' launches and numbers, and AdamW's
+    launches in the counted step."""
     from torch.autograd import DeviceType
+    from repro_torch.kernels.adamw import kernel as adamw_kernel
     from torch.profiler import ProfilerActivity, profile
     name, over, b, s = MOE_TRAIN
     cfg = dataclasses.replace(get(name), **over)
@@ -2371,6 +2530,7 @@ def phase_moe_train(torch, get, registry, train, adamw, flat_params, moe,
     torch.cuda.synchronize()
     moe.take_counts()
     n0 = gmm.launches + gmm_dw.launches
+    reset_adamw(adamw_kernel)
     t0 = time.perf_counter()
     with moe.counting():
         model, state, met = step(model, state, batch)
@@ -2387,6 +2547,8 @@ def phase_moe_train(torch, get, registry, train, adamw, flat_params, moe,
                              f"one a layer and no pair dropped")
     if not math.isfinite(float(met["loss"])):
         raise AssertionError("moe train step: non-finite loss")
+    numels = [p.numel() for p in flat_params(api.param_tree(model))]
+    opt_step = expect_adamw(adamw_kernel, numels, 1, "moe train step")
     d, f = cfg.d_model, cfg.d_ff
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -2408,7 +2570,8 @@ def phase_moe_train(torch, get, registry, train, adamw, flat_params, moe,
         f" of {cfg.n_experts} experts held) train step at {b} x {s}: "
         f"{step_s:.3f} s = {b * s / step_s:.1f} tokens/s, loss "
         f"{float(met['loss']):.4f}; grouped kernels {launched} launches "
-        f"a step ({launched // cfg.n_layers} a layer); kept pairs a layer "
+        f"a step ({launched // cfg.n_layers} a layer), AdamW {opt_step} "
+        f"over {len(numels)} leaves; kept pairs a layer "
         f"{[c[0] for c in counts]} (expected {expected:.0f} on average), "
         f"largest expert {max(c[1] for c in counts)}, dropped 0; profiled "
         f"step: moe_gmm device {gmm_ms:.3f} ms in {n_launch} launches, "
@@ -2416,7 +2579,8 @@ def phase_moe_train(torch, get, registry, train, adamw, flat_params, moe,
         f"{pairs}: {bound_ms / gmm_ms:.3f} of the bound; {_peak(torch)}")
     del model, state, batch
     return dict(launches=gmm.launches + gmm_dw.launches - start, step=dict(
-        pairs=pairs, ms=gmm_ms, bound_ms=bound_ms, launches=n_launch))
+        pairs=pairs, ms=gmm_ms, bound_ms=bound_ms, launches=n_launch),
+        adamw=sum(opt_step.values()))
 
 
 # K2's backward (B, H, KV, Sq, Sk, hd, causal, window, dtype, atol, rtol)
@@ -2867,11 +3031,14 @@ def phase_lm_parity_train(torch, get_reduced, registry, train, adamw,
     the grad norm and every parameter after the AdamW update within 1e-4;
     K2's backward launched in every family with attention (f32: its
     ``fma`` route), K3's in rwkv6; the loss kernel once a family on the
-    card.  Returns the backward launches, K2's backward launches by route
-    and the loss kernel's launches."""
+    card, and AdamW's kernels one step's worth (the CPU takes the plain
+    loop).  Returns the backward launches, K2's backward launches by
+    route, the loss kernel's launches and AdamW's."""
+    from repro_torch.kernels.adamw import kernel as adamw_kernel
     from repro_torch.kernels.head_loss.kernel import loss_rows
     torch.cuda.reset_peak_memory_stats()
     head0 = loss_rows.launches
+    opt_launches = 0
     opt = adamw.AdamWConfig(**TRAIN_OPT)
     reset_backward(fa_bwd, wkv_bwd)
     for name, over in LM_PARITY.items():
@@ -2885,6 +3052,7 @@ def phase_lm_parity_train(torch, get_reduced, registry, train, adamw,
         batch_gpu = {k: t.cuda() for k, t in batch.items()}
         before = backward_launches(fa_bwd, wkv_bwd)
         head = loss_rows.launches
+        reset_adamw(adamw_kernel)
         out = {}
         for dev, api, m, bt in (("cuda", gpu, model_gpu, batch_gpu),
                                 ("cpu", cpu, model, batch)):
@@ -2906,6 +3074,10 @@ def phase_lm_parity_train(torch, get_reduced, registry, train, adamw,
                                  f"launched {launched['head_loss']} times "
                                  "on the card, expected 1")
         (mg, pg, sg), (mc, pc, sc) = out["cuda"], out["cpu"]
+        launched["adamw"] = expect_adamw(
+            adamw_kernel, [p.numel() for p in pg], 1,
+            f"lm-parity-train {name}")
+        opt_launches += sum(launched["adamw"].values())
         errs = {k: _check_close(torch, mg[k].cpu(), mc[k], 1e-4, 1e-4,
                                 f"lm-parity-train {name} {k}")
                 for k in ("loss", "grad_norm", "lr")}
@@ -2930,7 +3102,7 @@ def phase_lm_parity_train(torch, get_reduced, registry, train, adamw,
         raise AssertionError(f"lm-parity-train (f32): K2's backward "
                              f"launches by route {routes}, expected fma only")
     return (backward_launches(fa_bwd, wkv_bwd), routes,
-            loss_rows.launches - head0)
+            loss_rows.launches - head0, opt_launches)
 
 
 # the training cells at full width: (tag, config, batch, seq, the backward
@@ -3035,13 +3207,17 @@ def phase_train(torch, get, registry, train, adamw, data, fa, fa_bwd, wkv,
     restored checkpoint == the live state bit for bit; a fifth step,
     profiled; then ``run`` resumed from the checkpoint, whose step must
     give the fifth step's loss.  The loss kernel launches once a step, in
-    the run and in the profiled step.  A cell whose last field is False
-    saves no checkpoint and skips the restore and the resume.  Returns the
-    run's kernel launches by kernel and its losses and grad norms a
-    step."""
+    the run and in the profiled step, and AdamW's kernels one step's worth
+    a step (``adamw_per_step``: one update launch and two of the norm up
+    to 640 leaves).  A cell whose last field is False saves no checkpoint
+    and skips the restore and the resume.  Returns the run's kernel
+    launches by kernel (``adamw``: the three AdamW kernels', the profiled
+    step's included) and its losses and grad norms a step."""
     import tempfile
     from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.kernels.adamw import kernel as adamw_kernel
     from repro_torch.kernels.head_loss.kernel import loss_rows
+    from repro_torch.models.common import flat_params
     tag, name, b, s, bwd_name, per_step, ckpt = cell
     cfg = get(name)
     # each layer (Griffin: each super-block) is rematerialised, as the
@@ -3070,6 +3246,7 @@ def phase_train(torch, get, registry, train, adamw, data, fa, fa_bwd, wkv,
         reset_backward(fa_bwd, wkv_bwd)
         wkv.launches = 0
         loss_rows.launches = 0
+        reset_adamw(adamw_kernel)
         t0 = time.perf_counter()
         out = train.run(api, tc, batch_size=b, seq=s, seed=0)
         torch.cuda.synchronize()
@@ -3088,6 +3265,10 @@ def phase_train(torch, get, registry, train, adamw, data, fa, fa_bwd, wkv,
         if launches != want:
             raise AssertionError(f"{tag} train: kernel launches {launches}, "
                                  f"expected {want}")
+        numels = [p.numel() for p in flat_params(api.param_tree(
+            out["params"]))]
+        opt_run = expect_adamw(adamw_kernel, numels, steps, f"{tag} train")
+        launches["adamw"] = sum(opt_run.values())
         if fwd_name == "flash_attention":
             expect_routes(fa, {"wgmma": steps * fwd_per_step, "fma": 0},
                           f"{tag} train")
@@ -3110,7 +3291,9 @@ def phase_train(torch, get, registry, train, adamw, data, fa, fa_bwd, wkv,
             f"{steps - 1}; losses " + ", ".join(f"{x:.6f}" for x in losses)
             + f"; launches a step {fwd_name} {launches[fwd_name] // steps}, "
             f"{bwd_name} {launches[bwd_name] // steps}, head_loss "
-            f"{launches['head_loss'] // steps}"
+            f"{launches['head_loss'] // steps}, AdamW "
+            f"{ {k: v // steps for k, v in opt_run.items()} } over "
+            f"{len(numels)} leaves"
             + (f" (by route {bwd_routes(fa_bwd)} in the run)"
                if bwd_name == "flash_attention_bwd" else "")
             + f"; max_memory_allocated {peak}")
@@ -3141,6 +3324,7 @@ def phase_train(torch, get, registry, train, adamw, data, fa, fa_bwd, wkv,
         reset_backward(fa_bwd, wkv_bwd)
         wkv.launches = 0
         loss_rows.launches = 0
+        reset_adamw(adamw_kernel)
         model, opt_state, metrics, idle = profile_train_step(
             torch, train.make_train_step(api, opt), model, opt_state, batch,
             tag)
@@ -3149,6 +3333,8 @@ def phase_train(torch, get, registry, train, adamw, data, fa, fa_bwd, wkv,
             raise AssertionError(f"{tag} train: the profiled step launched "
                                  f"the loss kernel {loss_rows.launches} "
                                  "times, expected 1")
+        launches["adamw"] += sum(expect_adamw(
+            adamw_kernel, numels, 1, f"{tag} profiled train step").values())
         del model, opt_state, metrics, batch
         gc.collect()
         torch.cuda.empty_cache()
@@ -3221,7 +3407,8 @@ def train_sharded_rank(mesh, ckdir, matmul):
     gathered weights and moments), ``drop_devices`` of
     ``SHARDED_TRAIN_DROP`` ranks, the weights and both moments resharded,
     and one step on the survivors.  K2's and the loss kernel's launches
-    are counted from just before the full-width run to its end.
+    are counted from just before the full-width run to its end, and so
+    are AdamW's kernels' with the leaves of this rank's blocks they took.
     ``matmul``: the launcher's cuBLAS settings, so the ranks compute what
     it computes."""
     import torch
@@ -3233,6 +3420,7 @@ def train_sharded_rank(mesh, ckdir, matmul):
     from repro_torch.data.tokens import synthetic_batches
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention, flash_attention_bwd)
+    from repro_torch.kernels.adamw import kernel as adamw_kernel
     from repro_torch.kernels.head_loss.kernel import loss_rows
     from repro_torch.launch import elastic, train
     from repro_torch.launch.mesh import Collectives
@@ -3277,6 +3465,7 @@ def train_sharded_rank(mesh, ckdir, matmul):
     for fn in (flash_attention, flash_attention_bwd):
         fn.launches = fn.launches_wgmma = fn.launches_fma = 0
     loss_rows.launches = 0
+    reset_adamw(adamw_kernel)
     steps = SHARDED_TRAIN_STEPS
     tc = train.TrainConfig(steps=steps, log_every=1, ckpt_every=steps,
                            ckpt_dir=ckdir, keep=1, opt=opt)
@@ -3286,6 +3475,9 @@ def train_sharded_rank(mesh, ckdir, matmul):
                step_s=run["step_seconds"], coll=run["collective_seconds"])
     model, params, state = run["params"], run["shards"], run["opt_state"]
     del run
+    # the update's leaves: this rank's blocks (the same count on the
+    # survivors' mesh)
+    opt_numels = [x.numel() for x in params.blocks]
     # the checkpoint == the gathered state, bit for bit, in a single-device
     # model (rank 0; every rank gathers the moments)
     comm = Collectives(mesh)
@@ -3341,6 +3533,11 @@ def train_sharded_rank(mesh, ckdir, matmul):
                         wgmma=flash_attention_bwd.launches_wgmma,
                         fma=flash_attention_bwd.launches_fma),
                head_loss=loss_rows.launches,
+               adamw=dict(adamw_launches(adamw_kernel),
+                          leaves=adamw_kernel.update.leaves,
+                          copied=adamw_kernel.update.copied,
+                          per_step=adamw_per_step(opt_numels),
+                          block_leaves=sum(1 for n in opt_numels if n)),
                peak=torch.cuda.max_memory_allocated())
     return out
 
@@ -3412,9 +3609,11 @@ def phase_train_sharded(torch, single: dict, gpu: str) -> dict:
     (``single``: its run's losses and grad norms) within
     ``SHARDED_TRAIN_RTOL``, the checkpoint restored bit for bit, K2's
     forward launched 60 times a step and its backward 30 on every rank,
-    all on ``wgmma``, and the loss kernel once a step on every rank.
-    Returns K2's forward and backward launches and the loss kernel's over
-    the ranks."""
+    all on ``wgmma``, the loss kernel once a step on every rank, and
+    AdamW's kernels one step's worth a step on every rank (the update over
+    the rank's blocks, every block sent, the norm over the whole
+    gradient).  Returns K2's forward and backward launches, the loss
+    kernel's and AdamW's over the ranks."""
     import tempfile
     from repro_torch.launch.mesh import start_mesh
     gc.collect()
@@ -3492,9 +3691,18 @@ def phase_train_sharded(torch, single: dict, gpu: str) -> dict:
         f"coordinates {[r['new_coords'] for r in res]}; reshard of the "
         f"weights and both moments {max(r['reshard_s'] for r in res):.3f} s "
         f"(host clock, slowest rank; {gpu})")
-    fwd, bwd, head = [], [], []
+    fwd, bwd, head, opt = [], [], [], []
     for r in res:
         n = steps + (r["new_coords"] is not None)
+        a = r["adamw"]
+        want = {k: n * v for k, v in a["per_step"].items()}
+        if {k: a[k] for k in want} != want \
+                or a["leaves"] != n * a["block_leaves"]:
+            raise AssertionError(f"sharded-train rank {r['rank']}: AdamW "
+                                 f"launches {a}, expected {want} and "
+                                 f"{n * a['block_leaves']} leaves in {n} "
+                                 "steps")
+        opt.append(a["update"] + a["sumsq"])
         if r["head_loss"] != n:
             raise AssertionError(f"sharded-train rank {r['rank']}: the loss "
                                  f"kernel launched {r['head_loss']} times "
@@ -3512,11 +3720,14 @@ def phase_train_sharded(torch, single: dict, gpu: str) -> dict:
         bwd.append(r["bwd"]["n"])
     log(f"sharded-train K2 launches per rank: forward {fwd}, backward "
         f"{bwd} (60 and 30 a step, every one on wgmma); loss kernel {head} "
-        f"(1 a step); max_memory_allocated "
+        f"(1 a step); AdamW by rank "
+        f"{[{k: r['adamw'][k] for k in ('update', 'sumsq', 'copied')} for r in res]}"
+        f" ({res[0]['adamw']['per_step']} a step; the copies are the "
+        f"gradients of blocks that are not contiguous); max_memory_allocated "
         f"per rank {[r['peak'] for r in res]}; card peak used {card.peak} "
         f"(sampled every {card.every_s} s); phase {phase_s:.3f} s ({gpu})")
     return {"flash_attention": sum(fwd), "flash_attention_bwd": sum(bwd),
-            "head_loss": sum(head)}
+            "head_loss": sum(head), "adamw": sum(opt)}
 
 
 # --------------------------------------------------------------------------
@@ -4005,6 +4216,8 @@ def main(argv=None) -> int:
     from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
                                                          attention_lse_ref,
                                                          attention_ref)
+    from repro_torch.kernels.adamw import kernel as adamw_kernel
+    from repro_torch.kernels.adamw import ref as adamw_ref
     from repro_torch.kernels.head_loss.kernel import loss_rows
     from repro_torch.kernels.head_loss.ops import pad_vocab
     from repro_torch.kernels.head_loss.ref import loss_rows_ref
@@ -4036,7 +4249,7 @@ def main(argv=None) -> int:
 
     # 2. build, one nvcc per source, all started together
     names = ("leaf_search", "flash_attention", "wkv6", "flash_attention_bwd",
-             "wkv6_bwd", "head_loss", "moe_gmm")
+             "wkv6_bwd", "head_loss", "moe_gmm", "adamw")
     t0 = time.perf_counter()
     libs = dict(zip(names, build.build_all(names)))
     log(f"build   {', '.join(n + '.cu' for n in names)} in "
@@ -4066,6 +4279,8 @@ def main(argv=None) -> int:
     numbers["moe_gmm"] = phase_moe_gmm(torch, gmm, gmm_dw, gmm_ref,
                                        gmm_dw_ref)
     torch.cuda.empty_cache()
+    numbers["adamw"] = phase_adamw(torch, get, registry, flat_params,
+                                   adamw_kernel, adamw_ref, adamw)
 
     # 4. the GPU run agrees with the CPU run
     phase_parity(torch, leaf_search, engine, get_preset)
@@ -4128,9 +4343,12 @@ def main(argv=None) -> int:
     # full-width training cells
     gc.collect()
     torch.cuda.empty_cache()
-    parity_bwd, parity_routes, head_paths["lm_parity_train"] = \
+    parity_bwd, parity_routes, head_paths["lm_parity_train"], parity_opt = \
         phase_lm_parity_train(torch, get_reduced, registry, train, adamw,
                               flat_params, flash_attention_bwd, wkv6_bwd)
+    # AdamW's launches on each training path (each phase raises unless
+    # they are one step's worth a step)
+    opt_paths = {"lm_parity_train": parity_opt}
     bwd_paths = {"flash_attention_bwd": {}, "wkv6_bwd": {}}
     # K2's backward by route on each path (the train cell raises unless
     # all its launches took wgmma)
@@ -4146,6 +4364,7 @@ def main(argv=None) -> int:
             flash_attention_bwd, wkv6, wkv6_bwd, cell)
         path = f"{tag}_train"
         head_paths[path] = run_launches["head_loss"]
+        opt_paths[path] = run_launches["adamw"]
         # a backward kernel's launches: over every training cell it runs in
         bwd_paths[bwd_name][path] = run_launches[bwd_name]
         launches[bwd_name] = launches.get(bwd_name, 0) + \
@@ -4164,6 +4383,7 @@ def main(argv=None) -> int:
                               flat_params, moe, gmm, gmm_dw)
     launches["moe_gmm"] = moe_run["launches"]
     numbers["moe_gmm"]["train_step"] = moe_run["step"]
+    opt_paths["qwen1.5_moe_train"] = moe_run["adamw"]
     # 17. train-smollm-135m-sharded: four gloo ranks, a drop, a reshard
     sharded_k2 = phase_train_sharded(torch, curves["smollm"], line)
     path = "smollm_sharded_train"
@@ -4175,6 +4395,8 @@ def main(argv=None) -> int:
     launches["flash_attention_bwd"] += sharded_k2["flash_attention_bwd"]
     head_paths[path] = sharded_k2["head_loss"]
     launches["head_loss"] = sum(head_paths.values())
+    opt_paths[path] = sharded_k2["adamw"]
+    launches["adamw"] = sum(opt_paths.values())
     for bwd_name, paths in bwd_paths.items():
         paths["lm_parity_train"] = parity_bwd[bwd_name]
 
@@ -4192,7 +4414,10 @@ def main(argv=None) -> int:
         "head_loss": None,
         # no TPU kernel: the reference's capacity-bounded expert einsums
         # are XLA's; the dropless dispatch's groups have no library product
-        "moe_gmm": None}
+        "moe_gmm": None,
+        # no TPU kernel: the reference leaves AdamW and its norm to XLA
+        # (repro/optim/adamw.py)
+        "adamw": None}
     kernels = [dict({"library_ms": None}, name=name, route="cuda",
                     source=f"src/repro_torch/csrc/{name}.cu",
                     replaces=replaces[name], launches=launches[name],
@@ -4213,6 +4438,7 @@ def main(argv=None) -> int:
     kernels[5]["launches_by_path"] = head_paths
     kernels[6]["launches_by_path"] = {"qwen1.5_moe_train":
                                       launches["moe_gmm"]}
+    kernels[7]["launches_by_path"] = opt_paths
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,12 +3,15 @@ global-norm clipping.  The port of :mod:`repro.optim.adamw`.
 
 The parameters, gradients and moments are lists of tensors in the
 reference's leaf order (a model's ``flat_params(api.param_tree(model))``,
-a stacked leaf's layers in layer order), so :func:`global_norm` sums the
-squares in the reference's order.  :func:`update` computes the
-reference's update in f32, tensor by tensor, in plain PyTorch (the
-reference leaves it to XLA outside any kernel), and writes the new
-parameters and moments in place where the reference returns new arrays:
-no second copy of the model or of its moments exists.
+a stacked leaf's layers in layer order).  :func:`update` computes the
+reference's update in f32 (the reference leaves it to XLA outside any
+kernel) and writes the new parameters and moments in place where the
+reference returns new arrays: no second copy of the model or of its
+moments exists.  On the card the norm and the update over the whole list
+are the CUDA kernels of :mod:`repro_torch.kernels.adamw` (a handful of
+launches a step, the schedule's and the clip's 0-d tensors read on the
+device); on the CPU, their plain version, a loop over the tensors that
+sums the norm's squares in the reference's leaf order.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.kernels.adamw import kernel
 from repro_torch.obs import spans
 
 
@@ -61,12 +65,10 @@ def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of every leaf's f32 sum of squares, leaf by leaf in
-    order (None leaves, a weight the loss does not reach, add 0)."""
+    """sqrt of the sum of every leaf's sum of squares (None leaves, a
+    weight the loss does not reach, add 0), as a 0-d f32 tensor."""
     with spans.span(spans.GRAD_NORM):
-        sq = sum(torch.sum(torch.square(x.float())) for x in tree
-                 if x is not None)
-        return torch.sqrt(torch.as_tensor(sq, dtype=torch.float32))
+        return kernel.sumsq(tree)
 
 
 @torch.no_grad()
@@ -90,13 +92,8 @@ def _update(cfg: AdamWConfig, grads, state: AdamWState, params, grad_norm):
     stepf = step.float()
     bc1 = 1 - cfg.b1 ** stepf
     bc2 = 1 - cfg.b2 ** stepf
-    for g, m, v, p in zip(grads, state.m, state.v, params):
-        g = (torch.zeros_like(m) if g is None else g.float()) * scale
-        m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
-        v.mul_(cfg.b2).add_((1 - cfg.b2) * g * g)
-        p32 = p.float()
-        delta = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps) \
-            + cfg.weight_decay * p32
-        p.copy_((p32 - lr * delta).to(p.dtype))
+    kernel.update(grads, state.m, state.v, params, lr, scale, bc1, bc2,
+                  b1=cfg.b1, b2=cfg.b2, eps=cfg.eps,
+                  weight_decay=cfg.weight_decay)
     return params, AdamWState(step=step, m=state.m, v=state.v), dict(
         loss=None, grad_norm=gn, lr=lr)

@@ -14,7 +14,9 @@ at the models' widths and on the wgmma route's own cases; WKV6 1e-4 in
 f32 and 0.15 in bf16; the reduced models (every family) 1e-4 in f32.
 The backward kernels: attention's 2e-5 in f32 and 4e-2 absolute plus
 2e-2 relative in bf16, WKV6's each gradient within 1e-4 · max(1,
-max|g|); one train step of every reduced family 1e-4 in f32."""
+max|g|); one train step of every reduced family 1e-4 in f32.  AdamW's
+update kernel bit for bit the plain loop's for the same norm; its norm
+within 1e-6 relative of an f64 sum."""
 import copy
 import dataclasses
 
@@ -1110,3 +1112,215 @@ def test_moe_published_train_step_on_the_card_matches_cpu():
         if dev == "cuda":
             assert gmm.launches + gmm_dw.launches - n0 == 12 * cfg.n_layers
     assert abs(losses["cuda"] - losses["cpu"]) <= 2e-2 * abs(losses["cpu"])
+
+
+# --------------------------------------------------------------------------
+# AdamW and its gradient norm (kernels/adamw): the update's weights and
+# moments bit for bit the plain loop's for the same norm (the kernel's f32
+# arithmetic is the loop's, op for op, with no contraction); the norm
+# within 1e-6 relative of an f64 sum (the kernel sums in f64, then rounds
+# once to f32) and the same bits on every call
+# --------------------------------------------------------------------------
+
+#: (shape, weight dtype, gradient: "same" | "f32" | None | "strided",
+#:  weight and moments laid out: "plain" | "unaligned")
+ADAMW_LEAVES = [((), "bfloat16", "same", "plain"),
+                ((7,), "bfloat16", "same", "plain"),
+                ((3, 5), "float32", "same", "plain"),
+                ((1000,), "bfloat16", None, "plain"),
+                ((65536,), "bfloat16", "same", "plain"),
+                ((65537,), "float32", "same", "plain"),
+                ((2048, 33), "bfloat16", "strided", "plain"),
+                ((4099,), "bfloat16", "same", "unaligned"),
+                ((129,), "float32", "f32", "unaligned"),
+                ((64, 40), "bfloat16", "strided", "plain"),
+                ((96, 130), "float32", "strided", "plain"),
+                ((2 ** 28 + 3,), "bfloat16", "same", "plain")]
+
+
+def _laid_out(x, layout):
+    """``x`` as a tensor of its values laid out as asked: itself; a view
+    one element past a 16-byte boundary; a transposed slice of a wider
+    tensor."""
+    if layout == "plain":
+        return x
+    if layout == "unaligned":
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+        out = buf[1:].view(x.shape)
+        out.copy_(x)
+        return out
+    wide = torch.zeros((x.shape[1], x.shape[0] + 3), dtype=x.dtype,
+                       device=x.device)
+    out = wide[:, 1:1 + x.shape[0]].T
+    out.copy_(x)
+    assert not out.is_contiguous()
+    return out
+
+
+def adamw_leaves(seed, grad_scale=1.0, cases=ADAMW_LEAVES):
+    """``(grads, ms, vs, params)`` on the card: random weights and
+    gradients, m of both signs, v > 0, laid out as ``cases`` say."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    grads, ms, vs, params = [], [], [], []
+    for shape, dtype, grad, layout in cases:
+        rnd = lambda: torch.randn(shape, generator=g, device="cuda")
+        p = rnd().to(getattr(torch, dtype))
+        m, v = rnd() * 1e-3, rnd().square() * 1e-5
+        params.append(_laid_out(p, layout))
+        ms.append(_laid_out(m, layout))
+        vs.append(_laid_out(v, layout))
+        if grad is None:
+            grads.append(None)
+            continue
+        x = (rnd() * grad_scale).to(
+            torch.float32 if grad == "f32" else p.dtype)
+        grads.append(_laid_out(x, "strided" if grad == "strided"
+                               else "plain"))
+    return grads, ms, vs, params
+
+
+def adamw_scalars(cfg, step0, gn):
+    """lr, the clip factor and the bias corrections as ``_update`` makes
+    them, at step ``step0 + 1``."""
+    from repro_torch.optim import adamw
+    step = torch.tensor(step0 + 1, dtype=torch.int32, device="cuda")
+    stepf = step.float()
+    return (adamw.schedule(cfg, step),
+            torch.clamp(cfg.clip_norm / (gn + 1e-9), max=1.0),
+            1 - cfg.b1 ** stepf, 1 - cfg.b2 ** stepf)
+
+
+def same_bits(got, want):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    a = got.contiguous().view(ints[got.dtype])
+    b = want.contiguous().view(ints[want.dtype])
+    assert torch.equal(a, b), int((a != b).sum())
+
+
+@pytest.mark.parametrize("clip", [True, False])
+@pytest.mark.parametrize("step0", [0, 6])          # steps 1 and 7
+def test_adamw_update_kernel_matches_the_loop_bit_for_bit(step0, clip):
+    """The whole leaf list in one update launch (the 0-d leaf, odd
+    lengths, chunk edges, unaligned views, non-contiguous gradients, None
+    gradients, bf16 and f32 weights, one leaf of over 2^28
+    elements) against ``update_ref`` on the same tensors' copies, with the
+    same scalars: every weight, m and v the same bits."""
+    from repro_torch.kernels.adamw import kernel as K
+    from repro_torch.kernels.adamw.ref import update_ref
+    from repro_torch.optim import adamw
+    cfg = adamw.AdamWConfig(lr=1e-2, warmup_steps=3, total_steps=20,
+                            clip_norm=1.0 if clip else 1e30)
+    grads, ms, vs, params = adamw_leaves(step0 + 10 * clip, 4.0)
+    copy = lambda xs: [None if x is None else x.clone() for x in xs]
+    want = [copy(xs) for xs in (grads, ms, vs, params)]
+    gn = K.sumsq(grads)
+    lr, scale, bc1, bc2 = adamw_scalars(cfg, step0, gn)
+    assert (float(scale) < 1.0) == clip
+    n0, c0 = K.update.launches, K.update.copied
+    K.update(grads, ms, vs, params, lr, scale, bc1, bc2, b1=cfg.b1,
+             b2=cfg.b2, eps=cfg.eps, weight_decay=cfg.weight_decay)
+    update_ref(*want, lr, scale, bc1, bc2, cfg.b1, cfg.b2, cfg.eps,
+               cfg.weight_decay)
+    torch.cuda.synchronize()
+    assert K.update.launches == n0 + 1
+    # the three strided gradients
+    assert K.update.copied == c0 + 3
+    for got, ref in zip(ms + vs + params, want[1] + want[2] + want[3]):
+        same_bits(got, ref)
+
+
+def test_adamw_update_kernel_over_the_table_splits():
+    """1,500 leaves (more than two tables of 640): three update launches,
+    the same bits as the loop's."""
+    from repro_torch.kernels.adamw import kernel as K
+    from repro_torch.kernels.adamw.ref import update_ref
+    from repro_torch.optim import adamw
+    rng = np.random.default_rng(0)
+    cases = [((int(n),), "bfloat16", "same", "plain")
+             for n in rng.integers(1, 3000, 1500)]
+    cfg = adamw.AdamWConfig()
+    grads, ms, vs, params = adamw_leaves(1, 1.0, cases)
+    want = [[x.clone() for x in xs] for xs in (grads, ms, vs, params)]
+    lr, scale, bc1, bc2 = adamw_scalars(cfg, 2, K.sumsq(grads))
+    n0 = K.update.launches
+    K.update(grads, ms, vs, params, lr, scale, bc1, bc2, b1=cfg.b1,
+             b2=cfg.b2, eps=cfg.eps, weight_decay=cfg.weight_decay)
+    update_ref(*want, lr, scale, bc1, bc2, cfg.b1, cfg.b2, cfg.eps,
+               cfg.weight_decay)
+    torch.cuda.synchronize()
+    assert K.update.launches == n0 + 3
+    for got, ref in zip(ms + vs + params, want[1] + want[2] + want[3]):
+        same_bits(got, ref)
+
+
+@pytest.mark.parametrize("n_leaves", [len(ADAMW_LEAVES), 1500])
+def test_adamw_norm_kernel_against_an_f64_sum(n_leaves):
+    """``global_norm`` on the card within 1e-6 relative of the f64 sum of
+    squares, the same bits in two runs; one launch a table and the
+    finalize."""
+    from repro_torch.kernels.adamw import kernel as K
+    from repro_torch.optim import adamw
+    if n_leaves == len(ADAMW_LEAVES):
+        grads = adamw_leaves(3, 3.0)[0]
+    else:
+        rng = np.random.default_rng(1)
+        grads = adamw_leaves(4, 1.0, [((int(n),), "float32", "same", "plain")
+                                      for n in rng.integers(1, 5000,
+                                                            n_leaves)])[0]
+    want = sum(float(x.double().square().sum()) for x in grads
+               if x is not None) ** 0.5
+    n0 = K.sumsq.launches
+    a = adamw.global_norm(grads)
+    b = adamw.global_norm(grads)
+    torch.cuda.synchronize()
+    assert a.dtype == torch.float32 and a.shape == () and a.is_cuda
+    assert abs(float(a) - want) <= 1e-6 * want
+    same_bits(a, b)
+    assert K.sumsq.launches - n0 == 2 * (-(-n_leaves // 640) + 1)
+
+
+def test_adamw_update_never_syncs_with_the_host():
+    """A whole ``adamw.update`` (the schedule, the norm, the clip, the
+    kernels) under ``torch.cuda.set_sync_debug_mode("error")``."""
+    from repro_torch.optim import adamw
+    grads, ms, vs, params = adamw_leaves(5, 1.0, ADAMW_LEAVES[:-1])
+    cfg = adamw.AdamWConfig()
+    state = adamw.AdamWState(
+        step=torch.zeros((), dtype=torch.int32, device="cuda"), m=ms, v=vs)
+    _, state, _ = adamw.update(cfg, grads, state, params)  # builds, loads
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, state, info = adamw.update(cfg, grads, state, params)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert int(state.step) == 2 and torch.isfinite(info["grad_norm"])
+
+
+def test_adamw_update_launches_for_582_leaves():
+    """rwkv6-1.6b's 582 leaves (their sizes cut by 64): the counters show
+    one update launch, one norm launch and its finalize, and the whole
+    ``adamw.update`` launches at most 40 device operations."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.adamw import kernel as K
+    from repro_torch.optim import adamw
+    sizes = ([2048 * 65536 // 64] * 2 + [2048 * 7168 // 64] * 48
+             + [2048 * 2048 // 64] * 120 + [2048 * 32] * 100
+             + [2048] * 310 + [32 * 2048] * 2)
+    assert len(sizes) == 582
+    cases = [((n,), "bfloat16", "same", "plain") for n in sizes]
+    grads, ms, vs, params = adamw_leaves(6, 1.0, cases)
+    cfg = adamw.AdamWConfig()
+    state = adamw.init(params)
+    adamw.update(cfg, grads, state, params)
+    torch.cuda.synchronize()
+    counts = (K.update.launches, K.sumsq.launches, K.update.leaves)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        adamw.update(cfg, grads, state, params)
+        torch.cuda.synchronize()
+    assert (K.update.launches - counts[0], K.sumsq.launches - counts[1],
+            K.update.leaves - counts[2]) == (1, 2, 582)
+    ops = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert 3 <= len(ops) <= 40, len(ops)
